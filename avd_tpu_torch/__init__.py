@@ -1,0 +1,16 @@
+"""avd_tpu_torch — the PyTorch/CUDA port of ``avd_tpu``.
+
+Runs the video-feature path (host prep, average-hash duplicates, batched
+Farnebäck flow with hand-written CUDA warp and blur+solve kernels), the
+audio window features and fusion on an NVIDIA H100, from decoded media to
+the reference-compatible JSON envelope.  The package imports ``torch`` and
+never ``jax`` or anything of ``avd_tpu``: every framework-free helper it
+needs is its own copy.  Module paths mirror ``avd_tpu`` so each
+counterpart is easy to find.
+
+Entry points take ``device=``; the default is ``torch.device("cuda")``, and
+they raise when CUDA is absent unless the caller asks for the CPU
+(``avd_tpu_torch.device.resolve``).
+"""
+
+__version__ = "1.2.3"

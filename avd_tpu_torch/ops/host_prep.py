@@ -1,0 +1,179 @@
+"""Host preprocessing of BGR frames: integer-exact, numpy only.
+
+The counterpart of ``avd_tpu.native.prep320_bgr`` plus
+``avd_tpu/ops/video_features._host_prep``, as ONE numpy implementation of
+the integer semantics of ``avd_tpu/native/src/avd_native.cc`` (no cv2, no
+fallback chain).  Per frame it produces:
+
+* the full-resolution Laplacian variance (cv2.Laplacian(CV_64F).var():
+  ksize-1 stencil, reflect-101 borders, exact int64 sums);
+* the 32×32 INTER_AREA bins (``Area32``: integer-ratio round-half-up,
+  fractional-ratio ``nearbyint``, float64 in the C++ operation order);
+* the 320×320 INTER_LINEAR plane (cv2's u8 fixed-point pipeline).
+
+Grayscale is cv2's fixed point ``(R·9798 + G·19235 + B·3735 + 2¹⁴) >> 15``.
+
+The bilinear coefficients clamp the source index but keep the fraction
+(a source row −1 reads row 0 with its own weight).  That is cv2's rule: on
+downscale no index is ever clamped, and on upscale it reproduces cv2 5.0
+bit for bit, where clamping the fraction as well (the C++ path, which
+declines upscale) is off by one gray level on the first and last rows.
+
+Frames are processed in parallel threads (numpy releases the GIL in its
+array loops); every output is a pure function of its frame.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import functools
+import os
+
+import numpy as np
+
+FLOW_SIZE = 320  # reference flow resolution (video.py:43)
+HASH_SIZE = 32   # reference hash resolution (video.py:4)
+_COEF = 2048     # cv2 INTER_RESIZE_COEF_SCALE
+
+
+def to_gray(frame_bgr: np.ndarray) -> np.ndarray:
+    """[H, W, 3] BGR uint8 → [H, W] uint8, cv2 fixed point."""
+    f = frame_bgr.astype(np.int32)
+    acc = f[..., 2] * 9798 + f[..., 1] * 19235 + f[..., 0] * 3735 + (1 << 14)
+    return (acc >> 15).astype(np.uint8)
+
+
+def laplacian_var(gray: np.ndarray) -> float:
+    """cv2.Laplacian(gray, CV_64F).var() from exact int64 sums."""
+    h, w = gray.shape
+    p = np.pad(gray.astype(np.int32), 1, mode="reflect")  # reflect-101
+    lap = (p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:]
+           - 4 * p[1:-1, 1:-1])
+    s = int(lap.sum(dtype=np.int64))
+    s2 = int(np.square(lap).sum(dtype=np.int64))
+    n = float(h) * w
+    mean = float(s) / n
+    return float(s2) / n - mean * mean
+
+
+@functools.lru_cache(maxsize=16)
+def _area_plan(h: int, w: int):
+    """Column spans and the per-row distribution of ``Area32``
+    (avd_native.cc ``Area32::init``/``add_row``)."""
+    k = HASH_SIZE
+    sy = h / k
+    sx = w / k
+    px0 = np.empty(k, np.int64)
+    px1 = np.empty(k, np.int64)
+    w0 = np.empty(k, np.float64)
+    w1 = np.empty(k, np.float64)
+    for ox in range(k):
+        lo = ox * sx
+        hi = (ox + 1) * sx
+        p0 = int(np.floor(lo))
+        p1 = int(np.ceil(hi)) - 1
+        if p1 >= w:
+            p1 = w - 1
+        if p1 == p0:
+            px0[ox], px1[ox], w0[ox], w1[ox] = p0, p1, hi - lo, 0.0
+        else:
+            px0[ox], px1[ox] = p0, p1
+            w0[ox] = (p0 + 1) - lo
+            w1[ox] = hi - p1
+    rows = []  # (y, oy, top or None)
+    for y in range(h):
+        oy = min(int(y / sy), k - 1)
+        rsplit = (oy + 1) * sy
+        if float(y + 1) <= rsplit or oy == k - 1:
+            rows.append((y, oy, None))
+        else:
+            rows.append((y, oy, rsplit - y))
+    single = px1 == px0
+    integer_ratio = (h % k == 0) and (w % k == 0)
+    return px0, px1, w0, w1, single, rows, 1.0 / (sy * sx), integer_ratio
+
+
+def area32(gray: np.ndarray) -> np.ndarray:
+    """[H, W] uint8 (H, W >= 32) → [32, 32] uint8, ``Area32`` exact."""
+    h, w = gray.shape
+    px0, px1, w0, w1, single, rows, inv_area, integer_ratio = \
+        _area_plan(h, w)
+    g = gray.astype(np.int64)
+    cs = np.zeros((h, w + 1), np.int64)
+    np.cumsum(g, axis=1, out=cs[:, 1:])
+    # run = Σ row[p0+1 .. p1-1]; col = (run + row[p0]·w0) + row[p1]·w1
+    run = (cs[:, np.maximum(px1, px0 + 1)] - cs[:, px0 + 1]).astype(np.float64)
+    g0 = g[:, px0].astype(np.float64)
+    g1 = g[:, px1].astype(np.float64)
+    col = np.where(single, g0 * w0, (run + g0 * w0) + g1 * w1)
+    band = np.zeros((HASH_SIZE, HASH_SIZE), np.float64)
+    for y, oy, top in rows:  # sequential float64 sums, C++ order
+        if top is None:
+            band[oy] += col[y]
+        else:
+            band[oy] += col[y] * top
+            if oy + 1 < HASH_SIZE:
+                band[oy + 1] += col[y] * (1.0 - top)
+    v = band * inv_area
+    r = np.floor(v + 0.5) if integer_ratio else np.rint(v)
+    return np.clip(r, 0, 255).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=16)
+def lin320_coeffs(src: int):
+    """cv2 INTER_LINEAR u8 coefficients for ``src`` → 320: source indices
+    (clamped) of the two taps and their 11-bit weights."""
+    scale = src / FLOW_SIZE
+    fx = ((np.arange(FLOW_SIZE) + 0.5) * scale - 0.5).astype(np.float32)
+    x = np.floor(fx)
+    frac = (fx - x).astype(np.float32)
+    a1 = np.rint(frac * np.float32(_COEF)).astype(np.int32)
+    x = x.astype(np.int64)
+    return (np.clip(x, 0, src - 1), np.clip(x + 1, 0, src - 1),
+            _COEF - a1, a1)
+
+
+def lin320(gray: np.ndarray) -> np.ndarray:
+    """[H, W] uint8 → [320, 320] uint8, cv2 INTER_LINEAR bit-exact:
+    horizontal taps in int32, then
+    ((b0·(S0>>4))>>16) + ((b1·(S1>>4))>>16), then (v + 2) >> 2."""
+    h, w = gray.shape
+    cx0, cx1, ax0, ax1 = lin320_coeffs(w)
+    cy0, cy1, by0, by1 = lin320_coeffs(h)
+    r0 = gray[cy0].astype(np.int32)
+    r1 = gray[cy1].astype(np.int32)
+    s0 = ax0 * r0[:, cx0] + ax1 * r0[:, cx1]
+    s1 = ax0 * r1[:, cx0] + ax1 * r1[:, cx1]
+    v = (((by0[:, None] * (s0 >> 4)) >> 16)
+         + ((by1[:, None] * (s1 >> 4)) >> 16))
+    return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+def prep_frame(frame_bgr: np.ndarray):
+    """One BGR frame → (320² u8, 32² u8, Laplacian variance)."""
+    gray = to_gray(frame_bgr)
+    return lin320(gray), area32(gray), laplacian_var(gray)
+
+
+def host_prep(frames_bgr: np.ndarray, threads: int | None = None):
+    """[N, H, W, 3] BGR uint8 → (flow_input [N,320,320] u8,
+    hash_input [N,32,32] u8, tex [N] f64); H, W >= 32."""
+    n, h, w = frames_bgr.shape[:3]
+    if h < HASH_SIZE or w < HASH_SIZE:
+        raise ValueError(f"host prep needs frames of at least "
+                         f"{HASH_SIZE}×{HASH_SIZE}, got {h}×{w}")
+    s320 = np.empty((n, FLOW_SIZE, FLOW_SIZE), np.uint8)
+    s32 = np.empty((n, HASH_SIZE, HASH_SIZE), np.uint8)
+    tex = np.empty(n, np.float64)
+
+    def work(i):
+        s320[i], s32[i], tex[i] = prep_frame(frames_bgr[i])
+
+    workers = min(threads or os.cpu_count() or 1, n)
+    if workers > 1:
+        with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+            list(pool.map(work, range(n)))
+    else:
+        for i in range(n):
+            work(i)
+    return s320, s32, tex

@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels of the port and their wrappers.
+
+Each wrapper module holds the kernel's plain PyTorch version, a launch
+counter (``LAUNCHES``, a plain int raised once per kernel launch and
+nowhere else) and the ctypes binding.  A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
+"""

@@ -1,0 +1,112 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
+own into ``build/avd_tpu_torch_kernels/lib<name>-<digest>.so`` under the
+checkout, at first use; the digest covers the source and the flags, so an
+edited source rebuilds and an unchanged one loads the cached library.
+``build_all`` starts one nvcc per source at once and waits for all.
+Nothing here runs at import time: the CPU tests import every module on a
+machine with no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
+                         "avd_tpu_torch_kernels")
+SOURCES = ("warp", "blur_solve")
+
+# --fmad=false: the kernels keep the plain versions' rounding (no fused
+# multiply-add contraction), so a near-singular 2×2 solve does not turn a
+# last-bit difference into a visible one.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: put the CUDA toolkit on PATH or "
+                       "set CUDA_HOME")
+
+
+def lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def _start(name: str):
+    """Start nvcc for one source; None when its library is already built."""
+    out = lib_path(name)
+    if os.path.exists(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: a cut build never leaves a partial .so
+
+
+def build_all(names=SOURCES) -> float:
+    """Build every source in parallel (one nvcc each); returns seconds."""
+    t0 = time.perf_counter()
+    with _lock:
+        started = [(n, _start(n)) for n in names]
+        for n, s in started:
+            _finish(n, s)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu`` (built on first use)."""
+    lib = _libs.get(name)
+    if lib is None:
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                _finish(name, _start(name))
+                lib = ctypes.CDLL(lib_path(name))
+                _libs[name] = lib
+    return lib
+
+
+def check_cuda(x, name: str) -> None:
+    """Wrapper-side input contract shared by the kernels."""
+    import torch
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must lie on a CUDA device, not {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, not {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``avd_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero before the result line:
+
+1. device: the card's name and power limit, torch and CUDA versions;
+2. build: every CUDA source under ``avd_tpu_torch/csrc`` (one nvcc each,
+   all started together);
+3. warp: the kernel against its plain version at [48,5,H,W] for the four
+   pyramid levels, on smooth random flow and on a large pan (in-bounds
+   |Δ| <= 1e-5, out-of-bounds exactly 0), with kernel, plain and
+   ``grid_sample`` times and the bytes bound;
+4. blur+solve: the same on positive-semidefinite M fields (atol 2e-4,
+   rtol 1e-3);
+5. main path: 145 panning 1080p BGR frames and a 5 s speech-like waveform
+   through ``pipeline.analyze_decoded`` on the card; the launch counters
+   must rise by 48 each (4 windows × 4 levels × 3 rounds); the envelope
+   must pass ``schema.validate``; then host-prep, device and end-to-end
+   times;
+6. card vs CPU: a 25-frame 360×640 clip through the port on both (flow
+   mean rtol 1e-3, |Δai_score| <= 1e-3, the same label);
+7. profile: ``torch.profiler`` over the main path's device work (host prep
+   precomputed): the device-busy time and the card's idle share of the
+   end-to-end run, with the table of kernels by device time written to
+   ``chiprun_out/torch_profile_window.txt``.
+
+It prints one ``{"kernels": [...]}`` line and, last, the
+``{"ok": true, "device": {...}}`` line.  It needs the repository beside it
+and a CUDA device; it imports nothing of ``jax`` or ``avd_tpu``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from unittest import mock
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+LEVELS = (320, 160, 80, 40)  # Farnebäck pyramid of the 320² flow planes
+PAIRS = 48                   # pairs per full window (chunk 48)
+ROUNDS = 3                   # solver rounds per level
+
+FRAMES_MAIN = 145
+H_MAIN, W_MAIN = 1080, 1920
+DEV = "cuda"
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise PhaseError(msg)
+
+
+def time_ms(fn, reps=25, warm=3):
+    """Median device time of one ``fn`` call in ms (CUDA events, warm).
+
+    A sleep kernel holds the stream while the host enqueues every call
+    with an event between each two, so the events time the device work
+    back to back and not the host's launch overhead."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clock
+    events[0].record()
+    for e in events[1:]:
+        fn()
+        e.record()
+    events[-1].synchronize()
+    return statistics.median(a.elapsed_time(b)
+                             for a, b in zip(events, events[1:]))
+
+
+def bound_ms(n_bytes, n_flops):
+    """Least time for the work: the larger of the bytes over the memory
+    rate and the operations over the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+# ---------------------------------------------------------------------------
+# content (numpy, from seeds)
+# ---------------------------------------------------------------------------
+
+def box_smooth(img, r):
+    """Separable (2r+1)-tap box mean along the first two axes."""
+    out = img.astype(np.float32)
+    for axis in (0, 1):
+        c = np.cumsum(np.pad(out, [(r + 1, r) if a == axis else (0, 0)
+                                   for a in range(out.ndim)], mode="edge"),
+                      axis=axis)
+        n = out.shape[axis]
+        hi = np.take(c, np.arange(2 * r + 1, 2 * r + 1 + n), axis=axis)
+        lo = np.take(c, np.arange(0, n), axis=axis)
+        out = (hi - lo) / (2 * r + 1)
+    return out
+
+
+def pan_frames(n, h, w, seed=0):
+    """Textured frames panning (5, 3) px per frame over a smoothed noise
+    canvas (the bench's "pan" content), BGR uint8."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h + 64, w + 64, 3), dtype=np.uint8)
+    base = np.clip(np.round(box_smooth(base, 2)), 0, 255).astype(np.uint8)
+    frames = np.empty((n, h, w, 3), np.uint8)
+    for i in range(n):
+        dy, dx = (i * 3) % 64, (i * 5) % 64
+        frames[i] = base[dy:dy + h, dx:dx + w]
+    return frames
+
+
+def speech_like(seconds, sr=16000, seed=5):
+    """Amplitude-modulated low-passed noise at 16-bit PCM resolution."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    k = np.hanning(64)
+    x = np.convolve(rng.standard_normal(n), k / k.sum(), mode="same")
+    env = 0.5 * (1 + np.sin(2 * np.pi * 3.0 * np.arange(n) / sr))
+    return (np.round(0.6 * x * env * 32768) / 32768).astype(np.float32)
+
+
+def clip_meta(w, h, fps, duration):
+    return {"width": w, "height": h, "fps": fps, "duration": duration,
+            "bit_rate": 8_000_000, "vcodec": "h264", "acodec": "aac",
+            "format_name": "mov,mp4,m4a,3gp,3g2,mj2"}
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    return card
+
+
+def phase_build():
+    from avd_tpu_torch.ops.kernels import _build
+    secs = _build.build_all()
+    log(f"build: {len(_build.SOURCES)} CUDA sources in {secs:.2f} s")
+
+
+def _warp_cases(h, gen):
+    import torch
+    import torch.nn.functional as F
+    src = torch.rand((PAIRS, 5, h, h), generator=gen, device=DEV)
+    rough = (torch.rand((PAIRS, 2, h, h), generator=gen, device=DEV)
+             - 0.5) * 12.0
+    smooth = F.avg_pool2d(F.pad(rough, (2, 2, 2, 2), mode="replicate"), 5,
+                          stride=1).contiguous()
+    pan = torch.empty((PAIRS, 2, h, h), device=DEV)
+    pan[:, 0] = 61.3 * h / 128
+    pan[:, 1] = 3.7 * h / 40
+    return src, {"smooth": smooth, "pan": pan}
+
+
+def phase_warp(gen):
+    import torch
+    import torch.nn.functional as F
+    from avd_tpu_torch.ops import flow as flow_ops
+    from avd_tpu_torch.ops.kernels import warp
+    rows, max_err = [], 0.0
+    for h in LEVELS:
+        src, cases = _warp_cases(h, gen)
+        n_inb = {}
+        for name, fl in cases.items():
+            out = warp.warp_bilinear(src, fl)
+            ref = warp.warp_bilinear_plain(src, fl)
+            _, inb = flow_ops._warp_poly(src, fl)
+            n_inb[name] = int(inb.sum())
+            inb = inb[:, None].expand_as(out)
+            err = float((out - ref)[inb].abs().max()) if inb.any() else 0.0
+            check(err <= 1e-5, f"warp {h} {name}: in-bounds |Δ| {err}")
+            check(not bool(out[~inb].any()),
+                  f"warp {h} {name}: out-of-bounds pixels not 0")
+            max_err = max(max_err, err)
+        fl = cases["smooth"]
+        ys, xs = torch.meshgrid(torch.arange(h, device=DEV),
+                                torch.arange(h, device=DEV),
+                                indexing="ij")
+        grid = torch.stack([(xs + fl[:, 0]) * (2.0 / (h - 1)) - 1,
+                            (ys + fl[:, 1]) * (2.0 / (h - 1)) - 1], dim=-1)
+        ms = time_ms(lambda: warp.warp_bilinear(src, fl))
+        plain = time_ms(lambda: warp.warp_bilinear_plain(src, fl))
+        lib = time_ms(lambda: F.grid_sample(src, grid, mode="bilinear",
+                                            padding_mode="zeros",
+                                            align_corners=True))
+        px = PAIRS * h * h
+        bnd, by = bound_ms(px * (5 + 2 + 5) * 4,
+                           px * 10 + n_inb["smooth"] * 35)
+        rows.append((h, ms, plain, lib, bnd, by))
+        log(f"warp [{PAIRS},5,{h},{h}]: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, grid_sample {lib:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}); max in-bounds |Δ| {max_err:.3g}")
+    return rows, max_err
+
+
+def _psd_m(h, gen):
+    import torch
+    r4, r5, r6, h1, h2 = torch.randn((5, PAIRS, h, h), generator=gen,
+                                     device=DEV)
+    return torch.stack([r4 * r4 + r6 * r6, (r4 + r5) * r6, r5 * r5 + r6 * r6,
+                        h1, h2], dim=1).contiguous()
+
+
+def phase_blur_solve(gen):
+    import torch
+    from avd_tpu_torch.ops.kernels import blur_solve
+    rows, max_err = [], 0.0
+    for h in LEVELS:
+        m = _psd_m(h, gen)
+        out = blur_solve.box_blur_solve(m)
+        ref = blur_solve.box_blur_solve_plain(m)
+        err = float((out - ref).abs().max())
+        excess = float(((out - ref).abs() - (2e-4 + 1e-3 * ref.abs())).max())
+        check(excess <= 0.0, f"blur+solve {h}: |Δ| {err} over atol 2e-4 "
+                             "rtol 1e-3")
+        max_err = max(max_err, err)
+        ms = time_ms(lambda: blur_solve.box_blur_solve(m))
+        plain = time_ms(lambda: blur_solve.box_blur_solve_plain(m))
+        px = PAIRS * h * h
+        bnd, by = bound_ms(px * (5 + 2) * 4, px * 160)
+        rows.append((h, ms, plain, None, bnd, by))
+        log(f"blur_solve [{PAIRS},5,{h},{h}]: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}); max |Δ| {err:.3g}")
+    return rows, max_err
+
+
+def _reset_counters():
+    from avd_tpu_torch.ops.kernels import blur_solve, warp
+    warp.LAUNCHES = 0
+    blur_solve.LAUNCHES = 0
+
+
+def _counters():
+    from avd_tpu_torch.ops.kernels import blur_solve, warp
+    return {"warp_bilinear": warp.LAUNCHES,
+            "box_blur_solve": blur_solve.LAUNCHES}
+
+
+def phase_main_path():
+    import torch
+    from avd_tpu_torch import pipeline, schema
+    from avd_tpu_torch.analyzers import video as video_an
+    from avd_tpu_torch.ingest import video_reader
+    from avd_tpu_torch.ops import host_prep, video_features
+
+    t0 = time.perf_counter()
+    frames = pan_frames(FRAMES_MAIN, H_MAIN, W_MAIN)
+    log(f"main path: made {FRAMES_MAIN} frames of {H_MAIN}x{W_MAIN} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    fps = 30.0
+    dur = FRAMES_MAIN * video_reader.sampling_step(fps) / fps
+    fb = video_reader.FrameBatch(frames, FRAMES_MAIN, fps, W_MAIN, H_MAIN,
+                                 dur)
+    wav = speech_like(5.0)
+    cuda = torch.device(DEV)
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    env = pipeline.analyze_decoded(fb, wav, 16000,
+                                   clip_meta(W_MAIN, H_MAIN, fps, dur),
+                                   device=cuda)
+    first_s = time.perf_counter() - t0
+    launches = _counters()
+    log(f"main path launches: {launches}")
+    for name, n in launches.items():
+        check(n == 48, f"{name} launched {n} times on the main path, "
+                       "expected 48 (4 windows x 4 levels x 3 rounds)")
+    schema.validate(env)
+    summ = env["video"]["summary"]
+    check(all(np.isfinite(v) for v in summ.values()
+              if isinstance(v, float)), f"non-finite summary {summ}")
+    check(len(env["video"]["timeline"]) == int(round(dur)),
+          "video timeline length")
+    check(0.5 < summ["flow_mean"] < 20.0,
+          f"flow_mean {summ['flow_mean']} of a (5, 3) px/frame pan")
+    log(f"main path envelope: label {env['result']['label']} ai_score "
+        f"{env['result']['ai_score']} flow_mean {summ['flow_mean']:.6f} "
+        f"dup_density {summ['dup_density']} ({first_s:.2f} s, first call)")
+
+    # steady state: the video analyzer end to end, then its two halves
+    e2e = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        video_an.analyze_batch(fb, device=cuda)
+        e2e.append(time.perf_counter() - t0)
+    prep = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        host_prep.host_prep(frames)
+        prep.append(time.perf_counter() - t0)
+    chunk = video_features._DEFAULT_CHUNK
+    prepped = [host_prep.host_prep(frames[i:i + chunk])
+               for i in range(0, FRAMES_MAIN, chunk)]
+    dev = []
+    for _ in range(3):
+        it = iter(prepped)
+        with mock.patch.object(video_features.host_prep_mod, "host_prep",
+                               lambda f: next(it)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            video_features.compute_features(frames, device=cuda)
+            dev.append(time.perf_counter() - t0)
+    best = min(e2e)
+    log(f"main path steady: analyze_batch {best:.3f} s "
+        f"({FRAMES_MAIN / best:.2f} frames/s; runs "
+        f"{', '.join(f'{t:.3f}' for t in e2e)}), host prep "
+        f"{min(prep):.3f} s, device pass (prep precomputed) "
+        f"{min(dev):.3f} s, threads {os.cpu_count()}")
+    return launches, frames, best
+
+
+def phase_card_vs_cpu():
+    import torch
+    from avd_tpu_torch import pipeline
+    from avd_tpu_torch.ingest import video_reader
+    frames = pan_frames(25, 360, 640, seed=1)
+    fps = 30.0
+    dur = 25 * video_reader.sampling_step(fps) / fps
+    fb = video_reader.FrameBatch(frames, 25, fps, 640, 360, dur)
+    wav = speech_like(3.0, seed=6)
+    meta = clip_meta(640, 360, fps, dur)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[dev] = pipeline.analyze_decoded(fb, wav, 16000, dict(meta),
+                                            device=torch.device(dev))
+        log(f"card vs cpu: {dev} {time.perf_counter() - t0:.2f} s")
+    g, c = out["cuda"], out["cpu"]
+    fm_g = g["video"]["summary"]["flow_mean"]
+    fm_c = c["video"]["summary"]["flow_mean"]
+    rel = abs(fm_g - fm_c) / abs(fm_c)
+    d_ai = abs(np.mean(g["timeline_binned"]) - np.mean(c["timeline_binned"]))
+    log(f"card vs cpu: flow_mean {fm_g:.7f} vs {fm_c:.7f} (rel {rel:.3g}), "
+        f"|Δai_score| {d_ai:.3g}, labels {g['result']['label']} / "
+        f"{c['result']['label']}")
+    check(rel <= 1e-3, f"flow_mean differs by {rel} relative")
+    check(d_ai <= 1e-3, f"ai_score differs by {d_ai}")
+    check(g["result"]["label"] == c["result"]["label"], "labels differ")
+    check(g["video"]["summary"]["dup_density"]
+          == c["video"]["summary"]["dup_density"], "dup_density differs")
+
+
+def phase_profile(frames, e2e_s):
+    """torch.profiler over the device work of the main path's windows;
+    the card's idle share is 1 - device busy / end-to-end wall time."""
+    import torch
+    from avd_tpu_torch.ops import host_prep, video_features
+    chunk = video_features._DEFAULT_CHUNK
+    prepped = [host_prep.host_prep(frames[i:i + chunk])
+               for i in range(0, FRAMES_MAIN, chunk)]
+    it = iter(prepped)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with mock.patch.object(video_features.host_prep_mod, "host_prep",
+                           lambda f: next(it)):
+        with torch.profiler.profile(activities=acts) as prof:
+            video_features.compute_features(frames, device=DEV)
+            torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    # device-side events only (kernels, copies): an operator's row repeats
+    # the time of the kernels it launched
+    busy_ms = sum(e.self_device_time_total for e in avgs
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    check(busy_ms > 0, "the profiler recorded no device time")
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", "torch_profile_window.txt")
+    with open(path, "w") as f:
+        f.write(avgs.table(sort_by="self_device_time_total", row_limit=40))
+    log(f"profile: device busy {busy_ms:.3f} ms per {FRAMES_MAIN}-frame "
+        f"clip; idle share {1 - busy_ms / 1e3 / e2e_s:.4f} of the "
+        f"{e2e_s:.3f} s end-to-end run; table in {path}")
+
+
+def kernel_entry(name, source, replaces, rows, max_err, launches):
+    ms = ROUNDS * sum(r[1] for r in rows)
+    plain = ROUNDS * sum(r[2] for r in rows)
+    lib = None if rows[0][3] is None else ROUNDS * sum(r[3] for r in rows)
+    bnd = ROUNDS * sum(r[4] for r in rows)
+    by = "bytes" if all(r[5] == "bytes" for r in rows) else "operations"
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib,
+            "unit": f"one full window: {ROUNDS} launches at each of "
+                    f"[{PAIRS},5,H,W], H=W in {list(LEVELS)}",
+            "per_level_ms": {str(r[0]): r[1] for r in rows}}
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke runs on a GPU",
+              file=sys.stderr)
+        return 2
+    try:
+        import avd_tpu_torch  # noqa: F401
+        from avd_tpu_torch import device as device_mod
+    except ImportError as e:
+        print(f"chip_smoke: the avd_tpu_torch package is not beside this "
+              f"script ({e})", file=sys.stderr)
+        return 2
+    device_mod.resolve("cuda")
+    try:
+        card = phase_device()
+        phase_build()
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(0)
+        warp_rows, warp_err = phase_warp(gen)
+        blur_rows, blur_err = phase_blur_solve(gen)
+        launches, frames, e2e_s = phase_main_path()
+        phase_card_vs_cpu()
+        phase_profile(frames, e2e_s)
+        torch.cuda.synchronize()
+    except PhaseError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    leaked = sorted(m for m in sys.modules if m == "jax" or
+                    m.startswith(("jax.", "avd_tpu.")) or m == "avd_tpu")
+    if leaked:
+        print(f"chip_smoke: FAILED: imported {leaked}", file=sys.stderr)
+        return 1
+    kernels = [
+        kernel_entry("warp_bilinear", "avd_tpu_torch/csrc/warp.cu",
+                     "avd_tpu/ops/pallas/warp.py:143", warp_rows, warp_err,
+                     launches["warp_bilinear"]),
+        kernel_entry("box_blur_solve", "avd_tpu_torch/csrc/blur_solve.cu",
+                     "avd_tpu/ops/pallas/blur_solve.py:97", blur_rows,
+                     blur_err, launches["box_blur_solve"]),
+    ]
+    log(card)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,102 @@
+"""Import hygiene and device rules of the PyTorch port (avd_tpu_torch).
+
+* The port imports neither jax nor anything of avd_tpu (checked in a fresh
+  interpreter, since this test process has both loaded).
+* Entry points called without ``device`` raise when CUDA is absent: there
+  is no silent CPU run.
+* A kernel wrapper given CPU tensors takes its plain version and leaves the
+  launch counter alone.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from avd_tpu_torch import device as device_mod
+from avd_tpu_torch import pipeline
+from avd_tpu_torch.analyzers import video as video_an
+from avd_tpu_torch.ingest import video_reader
+from avd_tpu_torch.ops import audio_features, video_features
+from avd_tpu_torch.ops.kernels import blur_solve, warp
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import avd_tpu_torch
+names = ["avd_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+    avd_tpu_torch.__path__, "avd_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.")
+             or k == "avd_tpu" or k.startswith("avd_tpu."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_no_avd_tpu():
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 20, r.stdout
+
+
+def _frames():
+    return np.zeros((2, 64, 64, 3), np.uint8)
+
+
+_ENTRY_POINTS = {
+    "resolve": lambda: device_mod.resolve(),
+    "compute_features": lambda: video_features.compute_features(_frames()),
+    "compute_features_streaming":
+        lambda: video_features.compute_features_streaming(iter([_frames()])),
+    "analyze_frames":
+        lambda: video_features.analyze_frames(_frames(), 64, 64, 30.0, 1.0),
+    "analyze_batch": lambda: video_an.analyze_batch(
+        video_reader.FrameBatch(_frames(), 2, 30.0, 64, 64, 1.0)),
+    "window_features":
+        lambda: audio_features.window_features(np.zeros(16000, np.float32),
+                                               16000),
+    "analyze_waveform":
+        lambda: audio_features.analyze_waveform(np.zeros(16000, np.float32),
+                                                16000),
+    "analyze_decoded": lambda: pipeline.analyze_decoded(
+        video_reader.FrameBatch(_frames(), 2, 30.0, 64, 64, 1.0),
+        np.zeros(16000, np.float32), 16000, {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_point_without_device_raises_when_cuda_absent(name,
+                                                            monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _ENTRY_POINTS[name]()
+
+
+def test_explicit_cpu_device_runs():
+    assert device_mod.resolve("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    rng = np.random.default_rng(0)
+    src = torch.from_numpy(rng.random((2, 5, 40, 48), np.float32))
+    fl = torch.from_numpy((rng.random((2, 2, 40, 48), np.float32) - 0.5) * 6)
+    m = torch.from_numpy(rng.random((2, 5, 40, 48), np.float32))
+    before = (warp.LAUNCHES, blur_solve.LAUNCHES)
+    out_w = warp.warp_bilinear(src, fl)
+    out_b = blur_solve.box_blur_solve(m)
+    assert (warp.LAUNCHES, blur_solve.LAUNCHES) == before == (0, 0)
+    assert torch.equal(out_w, warp.warp_bilinear_plain(src, fl))
+    assert torch.equal(out_b, blur_solve.box_blur_solve_plain(m))
