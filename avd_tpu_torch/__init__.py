@@ -1,9 +1,10 @@
 """avd_tpu_torch — the PyTorch/CUDA port of ``avd_tpu``.
 
 Runs the video-feature path (host prep, average-hash duplicates, batched
-Farnebäck flow with hand-written CUDA warp and blur+solve kernels), the
-audio window features and fusion on an NVIDIA H100, from decoded media to
-the reference-compatible JSON envelope.  The package imports ``torch`` and
+Farnebäck flow with hand-written CUDA warp, blur+solve and fused-round
+kernels), the per-frame ViT detector (``models/``, with a hand-written
+attention kernel), the audio window features and fusion on an NVIDIA H100,
+from decoded media to the reference-compatible JSON envelope.  The package imports ``torch`` and
 never ``jax`` or anything of ``avd_tpu``: every framework-free helper it
 needs is its own copy.  Module paths mirror ``avd_tpu`` so each
 counterpart is easy to find.

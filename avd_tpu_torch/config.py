@@ -109,6 +109,11 @@ class Config:
     # analogue): further analysis POSTs are shed with 503 + Retry-After
     # before their upload is spooled.  0 disables (reference behavior).
     max_inflight: int = 0
+    # One fused warp+update+blur+solve kernel per Farnebäck solver round
+    # (ops/kernels/flow_iter.py) instead of the three-stage sequence.  The
+    # JAX package's name for the same switch, so a deployment's setting
+    # carries over; off by default as there.
+    fused_flow_iter: bool = False
 
     @staticmethod
     def from_env() -> "Config":
@@ -136,6 +141,7 @@ class Config:
             batch_window_ms=_env_int("AVD_BATCH_WINDOW_MS", 0),
             profile=_env_bool("AVD_PROFILE", False),
             max_inflight=_env_int("AVD_MAX_INFLIGHT", 0),
+            fused_flow_iter=_env_bool("AVD_PALLAS_ITER", False),
         )
 
 

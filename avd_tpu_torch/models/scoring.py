@@ -1,0 +1,208 @@
+"""Detector → analyzer integration (the neural scoring slot).
+
+Port of ``avd_tpu/models/scoring.py`` for the per-frame ViT on one device:
+
+* ``AVD_DETECTOR=1`` attaches ``video["detector"] = {"timeline": [...],
+  "weights": ...}`` (per-sampled-frame AI probabilities) to the video
+  analyzer's output;
+* ``AVD_DETECTOR_BLEND=x`` (0..1) blends the detector probability into
+  ``timeline_ai`` (0 keeps the pure heuristic);
+* ``AVD_DETECTOR_PRESET`` picks the config (default ``full``: 224 px,
+  width 384, depth 6);
+* ``AVD_DETECTOR_CKPT`` names a directory written by
+  ``tools/torch_convert_weights.py`` (``params.npz`` and, beside it,
+  ``calibration.json``); absent, the model runs with seeded random weights
+  and says so (``"weights": "random_init"``);
+* ``AVD_DETECTOR_TEMP`` overrides the calibration temperature;
+* ``AVD_ATTN_FUSED=1`` routes attention through the hand-written kernel
+  (``ops/kernels/attention.py``).
+
+The other families (``AVD_DETECTOR_ARCH=cnn|temporal``), int8 serving
+(``AVD_DETECTOR_QUANT``), exported programs (``AVD_DETECTOR_EXPORTED``) and
+sharded inference are not ported yet and raise, naming ``ROADMAP.md``.
+
+Every function that touches the model takes ``device=`` and defaults to
+CUDA through ``device.resolve``: without a GPU it raises unless the caller
+asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import json
+import os
+import warnings
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from avd_tpu_torch import device as device_mod
+from avd_tpu_torch import models
+from avd_tpu_torch.models import convert
+from avd_tpu_torch.ops import host_prep
+
+
+def enabled() -> bool:
+    return os.getenv("AVD_DETECTOR", "0") == "1"
+
+
+def blend_factor() -> float:
+    try:
+        return min(1.0, max(0.0, float(os.getenv("AVD_DETECTOR_BLEND", "0"))))
+    except ValueError:
+        return 0.0
+
+
+def _arch() -> str:
+    """Model family: 'vit' (default), 'cnn' or 'temporal'."""
+    return os.getenv("AVD_DETECTOR_ARCH", "vit")
+
+
+def _temperature(ckpt) -> float:
+    """Post-hoc calibration temperature for the served checkpoint:
+    ``AVD_DETECTOR_TEMP`` if it is a positive float, else the checkpoint's
+    ``calibration.json``, else 1.  Serving divides the logits by it before
+    the sigmoid; ranking is unchanged, only confidence is rescaled."""
+    env = os.getenv("AVD_DETECTOR_TEMP")
+    if env:
+        try:
+            t = float(env)
+            if t > 0:
+                return t
+        except ValueError:
+            pass
+        warnings.warn(f"AVD_DETECTOR_TEMP={env!r} invalid — using the "
+                      "checkpoint calibration (or 1.0)", stacklevel=2)
+    if ckpt:
+        try:
+            with open(os.path.join(ckpt, "calibration.json")) as f:
+                t = float(json.load(f)["temperature"])
+            if t > 0:
+                return t
+        except (OSError, ValueError, KeyError):
+            pass
+    return 1.0
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
+
+
+def _bundle(device=None):
+    """(config, parameters on the device, probs function, weights label)
+    for the environment's detector settings, built once per device."""
+    return _bundle_on(str(device_mod.resolve(device)))
+
+
+@functools.lru_cache(maxsize=2)
+def _bundle_on(device: str):
+    dev = torch.device(device)
+    if os.getenv("AVD_DETECTOR_EXPORTED"):
+        raise _not_ported("AVD_DETECTOR_EXPORTED (ahead-of-time exported "
+                          "detector programs)")
+    arch = _arch()
+    quant = os.getenv("AVD_DETECTOR_QUANT", "0") == "1"
+    fused = os.getenv("AVD_ATTN_FUSED", "0") == "1"
+    if fused:
+        # the attention kernel is the ViT block's; the int8 forward has its
+        # own attention
+        if arch != "vit":
+            raise ValueError(
+                f"AVD_ATTN_FUSED=1 supports the vit family, not {arch!r}")
+        if quant:
+            raise ValueError("AVD_ATTN_FUSED=1 and AVD_DETECTOR_QUANT=1 "
+                             "are mutually exclusive (the int8 forward "
+                             "has its own attention)")
+    detector = models.family(arch)
+    if quant:
+        raise _not_ported("AVD_DETECTOR_QUANT=1 (int8 W8A8 serving)")
+    cfg = detector.make_config(os.getenv("AVD_DETECTOR_PRESET", "full"))
+    if fused:
+        cfg = dataclasses.replace(cfg, fused_attn=True)
+    ckpt = os.getenv("AVD_DETECTOR_CKPT")
+    if ckpt:
+        params = convert.load_npz(os.path.join(ckpt, convert.PARAMS_FILE),
+                                  cfg)
+        source = ckpt
+    else:
+        params = detector.init_params(0, cfg)
+        source = "random_init"
+    temp = _temperature(ckpt)
+    if temp != 1.0:
+        source = f"{source}+T{temp:.2f}"
+    params = detector.cast_for_inference(params, dev)
+
+    def probs(frames_f32: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            logits = detector.forward(params, frames_f32, cfg)[:, 0]
+            return torch.sigmoid(logits.float() / temp)
+
+    return cfg, params, probs, source
+
+
+_bundle.cache_clear = _bundle_on.cache_clear
+
+
+def input_size(device=None) -> int:
+    """Model input resolution (loads the bundle)."""
+    return _bundle(device)[0].image_size
+
+
+def resize_frames(frames_bgr: np.ndarray, size: int) -> np.ndarray:
+    """[N, H, W, 3] BGR uint8 → [N, size, size, 3] BGR uint8 with cv2's
+    INTER_AREA semantics (``ops/host_prep.resize_area``)."""
+    return host_prep.resize_area(frames_bgr, size, size)
+
+
+def _prep_frames(frames_bgr: np.ndarray, size: int) -> np.ndarray:
+    """[N, H, W, 3] BGR uint8 → [N, size, size, 3] RGB f32 in [0,1]."""
+    return resize_frames(frames_bgr, size)[..., ::-1].astype(np.float32) \
+        / 255.0
+
+
+def detector_timeline_resized(resized_bgr: np.ndarray,
+                              device=None) -> Optional[dict]:
+    """``detector_timeline`` for frames already resized to
+    ``input_size()`` (BGR uint8)."""
+    if not enabled() or resized_bgr.shape[0] == 0:
+        return None
+    batch = resized_bgr[..., ::-1].astype(np.float32) / 255.0
+    return _score_prepped(batch, device)
+
+
+def detector_timeline(frames_bgr: np.ndarray, device=None) -> Optional[dict]:
+    """Per-frame AI probabilities for a sampled-frame batch, or None when
+    the detector is disabled or no frames exist."""
+    if not enabled() or frames_bgr.shape[0] == 0:
+        return None
+    return _score_prepped(_prep_frames(frames_bgr, input_size(device)),
+                          device)
+
+
+def _score_prepped(batch: np.ndarray, device=None) -> dict:
+    """Score a prepped [N, size, size, 3] RGB f32 batch: padded to a
+    power-of-two bucket with the last frame repeated, one forward pass,
+    one fetch of the first N probabilities."""
+    dev = device_mod.resolve(device)
+    _, _, probs_fn, source = _bundle(dev)
+    n = batch.shape[0]
+    bucket = 1
+    while bucket < n:
+        bucket *= 2
+    if bucket != n:
+        batch = np.concatenate(
+            [batch, np.repeat(batch[-1:], bucket - n, axis=0)])
+    p = probs_fn(torch.from_numpy(np.ascontiguousarray(batch)).to(dev))
+    return {"timeline": [float(x) for x in p[:n].cpu().numpy()],
+            "weights": source}
+
+
+def blend(timeline_ai: List[float], det: List[float]) -> List[float]:
+    """Convex blend of heuristic and detector per-frame scores."""
+    f = blend_factor()
+    if f <= 0.0 or len(timeline_ai) != len(det):
+        return timeline_ai
+    return [float((1.0 - f) * h + f * d)
+            for h, d in zip(timeline_ai, det)]

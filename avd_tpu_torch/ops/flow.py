@@ -10,12 +10,14 @@ once:
   (``ops/band.py``), polynomial expansion = nine banded matmuls plus the
   inverse-Gram contraction;
 * per level, 3 solver rounds of warp (``ops/kernels/warp.py``) → the
-  pointwise normal equations → blur+solve (``ops/kernels/blur_solve.py``).
+  pointwise normal equations → blur+solve (``ops/kernels/blur_solve.py``),
+  or, with ``fused_iter``, one ``ops/kernels/flow_iter.py`` call per round.
 
-On CUDA the warp and the blur+solve are the hand-written kernels at every
-level (the JAX package's ``H % 40`` gates came from the TPU's tiling); on
-the CPU their plain versions run.  Layouts stay the JAX package's: fields
-are channels-first [B, 5, H, W] and ``farneback_flow`` returns [B, H, W, 2].
+On CUDA the warp, the blur+solve and the fused round are the hand-written
+kernels at every level (the JAX package's ``H % 40`` gates came from the
+TPU's tiling); on the CPU their plain versions run.  Layouts stay the JAX
+package's: fields are channels-first [B, 5, H, W] and ``farneback_flow``
+returns [B, H, W, 2].
 The numpy helpers are copies (``avd_tpu/ops/flow.py`` imports jax).
 """
 
@@ -31,6 +33,7 @@ import torch
 from avd_tpu_torch.ops import band
 from avd_tpu_torch.ops import resize as resize_ops
 from avd_tpu_torch.ops.kernels import blur_solve as blur_solve_k
+from avd_tpu_torch.ops.kernels import flow_iter as flow_iter_k
 from avd_tpu_torch.ops.kernels import warp as warp_k
 
 DEFAULT_PARAMS = dict(pyr_scale=0.5, levels=3, winsize=15, iterations=3,
@@ -38,7 +41,7 @@ DEFAULT_PARAMS = dict(pyr_scale=0.5, levels=3, winsize=15, iterations=3,
 
 # Border taper within 5 px of each edge (OpenCV FarnebackUpdateMatrices).
 _BORDER = 5
-_BORDER_SCALE = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472], np.float32)
+_BORDER_SCALE = np.array(flow_iter_k.BORDER_SCALE, np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -194,26 +197,39 @@ def poly_expansion(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
     return torch.stack([bx, by, cxx, cyy, cxy], dim=1)
 
 
+def _in_bounds(flow: torch.Tensor) -> torch.Tensor:
+    """[B,H,W] mask of the OpenCV in-bounds rule 0 <= floor(coord) < size-1
+    for the positions (x + dx, y + dy) of [B,2,H,W] flow planes."""
+    H, W = flow.shape[2:4]
+    xs = torch.arange(W, dtype=torch.float32, device=flow.device)[None, None]
+    ys = torch.arange(H, dtype=torch.float32,
+                      device=flow.device)[None, :, None]
+    x1 = torch.floor(xs + flow[:, 0])
+    y1 = torch.floor(ys + flow[:, 1])
+    return (x1 >= 0) & (x1 <= W - 2) & (y1 >= 0) & (y1 <= H - 2)
+
+
 def _warp_poly(R1: torch.Tensor, flow: torch.Tensor):
     """Bilinear warp of [B,5,H,W] coefficients by [B,2,H,W] flow planes.
 
-    Returns (warped [B,5,H,W], in_bounds [B,H,W]) with the OpenCV
-    in-bounds rule 0 <= floor(coord) < size-1; warped is 0 outside it."""
-    B, C, H, W = R1.shape
-    xs = torch.arange(W, dtype=torch.float32, device=R1.device)[None, None]
-    ys = torch.arange(H, dtype=torch.float32, device=R1.device)[None, :, None]
-    x1 = torch.floor(xs + flow[:, 0])
-    y1 = torch.floor(ys + flow[:, 1])
-    inb = (x1 >= 0) & (x1 <= W - 2) & (y1 >= 0) & (y1 <= H - 2)
-    return warp_k.warp_bilinear(R1, flow), inb
+    Returns (warped [B,5,H,W], in_bounds [B,H,W]); warped is 0 outside the
+    in-bounds rule."""
+    return warp_k.warp_bilinear(R1, flow), _in_bounds(flow)
 
 
 def _update_matrices(R0: torch.Tensor, R1: torch.Tensor,
                      flow: torch.Tensor) -> torch.Tensor:
     """Pointwise normal-equation entries M=[B,5,H,W] (G11,G12,G22,h1,h2)
     from channels-first polynomial fields and flow planes."""
+    return update_from_warped(R0, warp_k.warp_bilinear(R1, flow), flow)
+
+
+def update_from_warped(R0: torch.Tensor, R1w: torch.Tensor,
+                       flow: torch.Tensor) -> torch.Tensor:
+    """``_update_matrices`` after the warp: R1w is R1 warped by ``flow``
+    (0 outside the in-bounds rule)."""
     H, W = R0.shape[2:4]
-    R1w, inb = _warp_poly(R1, flow)
+    inb = _in_bounds(flow)
 
     # averaged quadratic coefficients; cross term carries an extra 1/2
     # because the stored channel is the full cross coefficient.
@@ -261,11 +277,14 @@ def _blur_solve(M: torch.Tensor, winsize: int) -> torch.Tensor:
 def farneback_flow(prev: torch.Tensor, cur: torch.Tensor,
                    pyr_scale: float = 0.5, levels: int = 3,
                    winsize: int = 15, iterations: int = 3,
-                   poly_n: int = 5, poly_sigma: float = 1.2) -> torch.Tensor:
+                   poly_n: int = 5, poly_sigma: float = 1.2,
+                   fused_iter: bool = False) -> torch.Tensor:
     """Batched Farnebäck flow: two [B, H, W] f32 stacks → [B, H, W, 2].
 
     Semantics match cv2.calcOpticalFlowFarneback with flags=0 (box-filter
-    aggregation, no initial flow).
+    aggregation, no initial flow).  With ``fused_iter`` each solver round
+    is one fused warp+update+blur+solve call (``AVD_PALLAS_ITER=1`` in the
+    JAX package) at every level; levels under 16 px raise.
     """
     B, H, W = prev.shape
     dev = prev.device
@@ -291,7 +310,10 @@ def farneback_flow(prev: torch.Tensor, cur: torch.Tensor,
         # first solve from the incoming flow's matrices, then
         # (iterations-1) refinement rounds
         for _ in range(iterations):
-            flow = _blur_solve(_update_matrices(R0, R1, flow), winsize)
+            if fused_iter:
+                flow = flow_iter_k.solve_iteration(R0, R1, flow, winsize)
+            else:
+                flow = _blur_solve(_update_matrices(R0, R1, flow), winsize)
     # external contract stays [B, H, W, 2]
     return flow.permute(0, 2, 3, 1)
 

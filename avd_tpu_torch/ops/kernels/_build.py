@@ -24,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "avd_tpu_torch_kernels")
-SOURCES = ("warp", "blur_solve")
+SOURCES = ("warp", "blur_solve", "flow_iter", "attention")
 
 # --fmad=false: the kernels keep the plain versions' rounding (no fused
 # multiply-add contraction), so a near-singular 2×2 solve does not turn a

@@ -27,6 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from avd_tpu_torch import config as config_mod
 from avd_tpu_torch import device as device_mod
 from avd_tpu_torch.oracle import video_ref
 from avd_tpu_torch.ops import flow, hashing
@@ -54,19 +55,22 @@ def _bucket_len(n_window: int, chunk: int) -> int:
     return chunk + 1
 
 
-def _prep_body(flow_u8: torch.Tensor, hash_u8: torch.Tensor):
+def _prep_body(flow_u8: torch.Tensor, hash_u8: torch.Tensor,
+               fused_iter: bool = False):
     """Pair features from pre-resized windows ([N, 320, 320] and
-    [N, 32, 32] uint8) → (ham [N-1] i32, fmean [N-1], fvar [N-1])."""
+    [N, 32, 32] uint8) → (ham [N-1] i32, fmean [N-1], fvar [N-1]).
+    ``fused_iter`` runs each solver round as one fused kernel call."""
     bits = hashing.average_hash_bits(hash_u8.float())
     ham = hashing.consecutive_hamming(bits)
     fs = flow_u8.float()
-    fl = flow.farneback_flow(fs[:-1], fs[1:])
+    fl = flow.farneback_flow(fs[:-1], fs[1:], fused_iter=fused_iter)
     fmean, fvar = flow.flow_magnitude_stats(fl)
     return ham, fmean, fvar
 
 
 def run_prep_window(w320: np.ndarray, w32: np.ndarray,
-                    device: torch.device) -> torch.Tensor:
+                    device: torch.device,
+                    fused_iter: bool = False) -> torch.Tensor:
     """Enqueue one window: one u8 host→device copy (pinned, non-blocking
     on CUDA), then the pair features.  Returns ham ‖ fmean ‖ fvar as one
     float32 device vector; nothing is fetched."""
@@ -78,7 +82,7 @@ def run_prep_window(w320: np.ndarray, w32: np.ndarray,
     n_flow = n * _FLOW_SIZE * _FLOW_SIZE
     f = packed[:n_flow].view(n, _FLOW_SIZE, _FLOW_SIZE)
     h8 = packed[n_flow:].view(n, _HASH_SIZE, _HASH_SIZE)
-    ham, fmean, fvar = _prep_body(f, h8)
+    ham, fmean, fvar = _prep_body(f, h8, fused_iter)
     return torch.cat([ham.float(), fmean, fvar])
 
 
@@ -127,6 +131,7 @@ def compute_features_streaming(chunk_iter, device=None) -> Dict:
     depend on how the frames were chunked.
     """
     dev = device_mod.resolve(device)
+    fused_iter = config_mod.get_config().fused_flow_iter  # AVD_PALLAS_ITER
     chunk = _DEFAULT_CHUNK
     pend: list = []      # (device result vector, valid, is_first, target)
     tex_parts: list = []
@@ -142,7 +147,8 @@ def compute_features_streaming(chunk_iter, device=None) -> Dict:
             tuple(p[0] for p in parts)
         windows = [_pad_window(np.concatenate([ld[None], p]), target)
                    for ld, p in zip(leads, parts)]
-        pend.append((run_prep_window(*windows, device=dev), valid,
+        pend.append((run_prep_window(*windows, device=dev,
+                                     fused_iter=fused_iter), valid,
                      prev_last is None, target))
         prev_last = tuple(p[-1] for p in parts)
 

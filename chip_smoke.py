@@ -24,7 +24,26 @@ Phases, in order; any failure exits non-zero before the result line:
 7. profile: ``torch.profiler`` over the main path's device work (host prep
    precomputed): the device-busy time and the card's idle share of the
    end-to-end run, with the table of kernels by device time written to
-   ``chiprun_out/torch_profile_window.txt``.
+   ``chiprun_out/torch_profile_window.txt``;
+8. mha: the attention kernel against its plain version at the detector's
+   shapes ([256,6,197,64], [12,6,197,64], [8,4,17,64]) and an odd one
+   (atol/rtol 2e-2 on bf16), with kernel, plain and
+   ``scaled_dot_product_attention`` times and the bound;
+9. flow_iter: the fused Farnebäck round against its plain version at
+   [48,·,H,W] for the four levels and [12,·,320,320] (atol 5e-4, rtol
+   1e-3), timed beside the unfused sequence it replaces (warp kernel,
+   PyTorch update, blur+solve kernel);
+10. detector path: the same 145 frames with ``AVD_DETECTOR=1``,
+    ``AVD_ATTN_FUSED=1`` and the ``full`` ViT (seeded weights) through
+    ``pipeline.analyze_decoded``: 145 finite probabilities, no
+    ``detector_error``, the attention counter up by 6 (depth × one
+    256-frame bucket); logits card against CPU within 2e-2; frames/s of
+    the scoring call and of the analyzer, and the device-busy time of one
+    scoring call with and without the kernel;
+11. fused-iteration path: 61 of the frames with ``AVD_PALLAS_ITER=1``:
+    ``flow_iter`` launched 24 times (2 windows × 4 levels × 3 rounds), warp
+    and blur+solve not at all, flow stats and ai_score against the unfused
+    run on the card; device pass and device launches per window for both.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It needs the repository beside it
@@ -45,11 +64,15 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 in the tensor cores
 LEVELS = (320, 160, 80, 40)  # Farnebäck pyramid of the 320² flow planes
 PAIRS = 48                   # pairs per full window (chunk 48)
 ROUNDS = 3                   # solver rounds per level
 
 FRAMES_MAIN = 145
+FRAMES_FUSED = 61            # one full 49-frame window and a 13-frame tail
+VIT_DEPTH, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM = 6, 6, 197, 64  # "full"
+VIT_BUCKET = 256             # 145 frames padded to the power-of-two bucket
 H_MAIN, W_MAIN = 1080, 1920
 DEV = "cuda"
 
@@ -88,11 +111,11 @@ def time_ms(fn, reps=25, warm=3):
                              for a, b in zip(events, events[1:]))
 
 
-def bound_ms(n_bytes, n_flops):
+def bound_ms(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
     """Least time for the work: the larger of the bytes over the memory
-    rate and the operations over the float32 rate."""
+    rate and the operations over the card's peak rate for their type."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -168,15 +191,15 @@ def phase_build():
     log(f"build: {len(_build.SOURCES)} CUDA sources in {secs:.2f} s")
 
 
-def _warp_cases(h, gen):
+def _warp_cases(h, gen, pairs=PAIRS):
     import torch
     import torch.nn.functional as F
-    src = torch.rand((PAIRS, 5, h, h), generator=gen, device=DEV)
-    rough = (torch.rand((PAIRS, 2, h, h), generator=gen, device=DEV)
+    src = torch.rand((pairs, 5, h, h), generator=gen, device=DEV)
+    rough = (torch.rand((pairs, 2, h, h), generator=gen, device=DEV)
              - 0.5) * 12.0
     smooth = F.avg_pool2d(F.pad(rough, (2, 2, 2, 2), mode="replicate"), 5,
                           stride=1).contiguous()
-    pan = torch.empty((PAIRS, 2, h, h), device=DEV)
+    pan = torch.empty((pairs, 2, h, h), device=DEV)
     pan[:, 0] = 61.3 * h / 128
     pan[:, 1] = 3.7 * h / 40
     return src, {"smooth": smooth, "pan": pan}
@@ -254,16 +277,20 @@ def phase_blur_solve(gen):
     return rows, max_err
 
 
+def _kernel_modules():
+    from avd_tpu_torch.ops.kernels import (attention, blur_solve, flow_iter,
+                                           warp)
+    return {"warp_bilinear": warp, "box_blur_solve": blur_solve,
+            "solve_iteration": flow_iter, "mha": attention}
+
+
 def _reset_counters():
-    from avd_tpu_torch.ops.kernels import blur_solve, warp
-    warp.LAUNCHES = 0
-    blur_solve.LAUNCHES = 0
+    for mod in _kernel_modules().values():
+        mod.LAUNCHES = 0
 
 
 def _counters():
-    from avd_tpu_torch.ops.kernels import blur_solve, warp
-    return {"warp_bilinear": warp.LAUNCHES,
-            "box_blur_solve": blur_solve.LAUNCHES}
+    return {name: mod.LAUNCHES for name, mod in _kernel_modules().items()}
 
 
 def phase_main_path():
@@ -292,9 +319,10 @@ def phase_main_path():
     first_s = time.perf_counter() - t0
     launches = _counters()
     log(f"main path launches: {launches}")
-    for name, n in launches.items():
-        check(n == 48, f"{name} launched {n} times on the main path, "
-                       "expected 48 (4 windows x 4 levels x 3 rounds)")
+    for name in ("warp_bilinear", "box_blur_solve"):
+        check(launches[name] == 48,
+              f"{name} launched {launches[name]} times on the main path, "
+              "expected 48 (4 windows x 4 levels x 3 rounds)")
     schema.validate(env)
     summ = env["video"]["summary"]
     check(all(np.isfinite(v) for v in summ.values()
@@ -336,7 +364,7 @@ def phase_main_path():
         f"{', '.join(f'{t:.3f}' for t in e2e)}), host prep "
         f"{min(prep):.3f} s, device pass (prep precomputed) "
         f"{min(dev):.3f} s, threads {os.cpu_count()}")
-    return launches, frames, best
+    return launches, frames, fb, best
 
 
 def phase_card_vs_cpu():
@@ -370,28 +398,44 @@ def phase_card_vs_cpu():
           == c["video"]["summary"]["dup_density"], "dup_density differs")
 
 
+def device_profile(fn):
+    """Run ``fn`` under ``torch.profiler``; returns (device-busy ms, count
+    of device kernels and copies, the averages).  Device-side events only:
+    an operator's row repeats the time of the kernels it launched."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    dev = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    check(busy_ms > 0, "the profiler recorded no device time")
+    return busy_ms, sum(e.count for e in dev), avgs
+
+
+def _device_pass(frames, prepped=None):
+    """``compute_features`` on the card with the host prep precomputed;
+    returns (features, the prepped chunks)."""
+    from avd_tpu_torch.ops import host_prep, video_features
+    chunk = video_features._DEFAULT_CHUNK
+    if prepped is None:
+        prepped = [host_prep.host_prep(frames[i:i + chunk])
+                   for i in range(0, frames.shape[0], chunk)]
+    it = iter(prepped)
+    with mock.patch.object(video_features.host_prep_mod, "host_prep",
+                           lambda f: next(it)):
+        feats = video_features.compute_features(frames, device=DEV)
+    return feats, prepped
+
+
 def phase_profile(frames, e2e_s):
     """torch.profiler over the device work of the main path's windows;
     the card's idle share is 1 - device busy / end-to-end wall time."""
-    import torch
-    from avd_tpu_torch.ops import host_prep, video_features
-    chunk = video_features._DEFAULT_CHUNK
-    prepped = [host_prep.host_prep(frames[i:i + chunk])
-               for i in range(0, FRAMES_MAIN, chunk)]
-    it = iter(prepped)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with mock.patch.object(video_features.host_prep_mod, "host_prep",
-                           lambda f: next(it)):
-        with torch.profiler.profile(activities=acts) as prof:
-            video_features.compute_features(frames, device=DEV)
-            torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    # device-side events only (kernels, copies): an operator's row repeats
-    # the time of the kernels it launched
-    busy_ms = sum(e.self_device_time_total for e in avgs
-                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    check(busy_ms > 0, "the profiler recorded no device time")
+    _, prepped = _device_pass(frames)
+    busy_ms, _, avgs = device_profile(lambda: _device_pass(frames, prepped))
     os.makedirs("chiprun_out", exist_ok=True)
     path = os.path.join("chiprun_out", "torch_profile_window.txt")
     with open(path, "w") as f:
@@ -399,6 +443,293 @@ def phase_profile(frames, e2e_s):
     log(f"profile: device busy {busy_ms:.3f} ms per {FRAMES_MAIN}-frame "
         f"clip; idle share {1 - busy_ms / 1e3 / e2e_s:.4f} of the "
         f"{e2e_s:.3f} s end-to-end run; table in {path}")
+
+
+def _close(out, ref, atol, rtol):
+    """(max |Δ|, whether every element is within atol + rtol·|ref|)."""
+    d = (out.float() - ref.float()).abs()
+    return float(d.max()), bool((d <= atol + rtol * ref.float().abs()).all())
+
+
+def phase_mha(gen):
+    """The attention kernel against its plain version, as the detector
+    block calls it: [B,T,H,D] views of one qkv tensor → [B,T,H·D]."""
+    import torch
+    import torch.nn.functional as F
+    from avd_tpu_torch.ops.kernels import attention
+    rows, max_err = [], 0.0
+    shapes = [(VIT_BUCKET, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM),
+              (12, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM), (8, 4, 17, 64),
+              (2, 3, 17, 8)]
+    for b, h, t, d in shapes:
+        qkv = torch.randn((b, t, 3, h, d), generator=gen,
+                          device=DEV).bfloat16()
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        out = attention.attention(q, k, v)
+        ref = attention.attention_plain(q, k, v)
+        err, ok = _close(out, ref, 2e-2, 2e-2)
+        check(ok, f"mha [{b},{h},{t},{d}]: |Δ| {err} over atol/rtol 2e-2")
+        # the head-major entry point on dense tensors
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        err_h, ok = _close(attention.mha(qh, kh, vh),
+                           attention.mha_plain(qh, kh, vh), 2e-2, 2e-2)
+        check(ok, f"mha head-major [{b},{h},{t},{d}]: |Δ| {err_h}")
+        max_err = max(max_err, err, err_h)
+        ms = time_ms(lambda: attention.attention(q, k, v))
+        plain = time_ms(lambda: attention.attention_plain(q, k, v))
+        qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs))
+        n = b * h * t * d
+        bnd, by = bound_ms(4 * n * 2, 4 * n * t, BF16_FLOPS_PER_S)
+        rows.append(((b, h, t, d), ms, plain, lib, bnd, by))
+        log(f"mha [{b},{h},{t},{d}]: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, scaled_dot_product_attention {lib:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}); max |Δ| {max(err, err_h):.3g}")
+    return rows, max_err
+
+
+def phase_flow_iter(gen):
+    """The fused round against its plain version and beside the unfused
+    sequence (warp kernel + PyTorch update + blur+solve kernel)."""
+    import torch
+    from avd_tpu_torch.ops import flow as flow_ops
+    from avd_tpu_torch.ops.kernels import blur_solve, flow_iter, warp
+    rows, max_err = [], 0.0
+    for pairs, h in [(PAIRS, lv) for lv in LEVELS] + [(12, LEVELS[0])]:
+        R1, cases = _warp_cases(h, gen, pairs)
+        R0 = torch.rand((pairs, 5, h, h), generator=gen, device=DEV)
+        n_inb = 0
+        for name, fl in cases.items():
+            out = flow_iter.solve_iteration(R0, R1, fl)
+            ref = flow_iter.solve_iteration_plain(R0, R1, fl)
+            err, ok = _close(out, ref, 5e-4, 1e-3)
+            check(ok, f"flow_iter [{pairs},{h}] {name}: |Δ| {err} over "
+                      "atol 5e-4 rtol 1e-3")
+            max_err = max(max_err, err)
+            if name == "smooth":
+                n_inb = int(flow_ops._in_bounds(fl).sum())
+                check(n_inb < fl[:, 0].numel(),
+                      "the smooth flow never leaves the image")
+        fl = cases["smooth"]
+
+        def unfused():
+            m = flow_ops.update_from_warped(R0, warp.warp_bilinear(R1, fl),
+                                            fl)
+            return blur_solve.box_blur_solve(m)
+
+        ms = time_ms(lambda: flow_iter.solve_iteration(R0, R1, fl))
+        plain = time_ms(lambda: flow_iter.solve_iteration_plain(R0, R1, fl),
+                        reps=9)
+        seq = time_ms(unfused)
+        px = pairs * h * h
+        bnd, by = bound_ms(px * (2 + 5 + 5 + 2) * 4,
+                           px * 215 + n_inb * 35)
+        key = h if pairs == PAIRS else f"{h} at B={pairs}"
+        rows.append((key, ms, plain, None, bnd, by, seq))
+        log(f"flow_iter [{pairs},5,{h},{h}]: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, unfused sequence {seq:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}); max |Δ| {max_err:.3g}")
+    return rows, max_err
+
+
+def _set_env(**env):
+    """Set or drop environment settings the port reads, and drop what it
+    cached from them."""
+    from avd_tpu_torch import config
+    from avd_tpu_torch.models import scoring
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    config.reset_config()
+    scoring._bundle.cache_clear()
+
+
+def phase_detector(frames, fb):
+    """The detector path at full width: AVD_DETECTOR=1, AVD_ATTN_FUSED=1,
+    preset ``full``, weights from a seed."""
+    import torch
+    from avd_tpu_torch import pipeline, schema
+    from avd_tpu_torch.analyzers import video as video_an
+    from avd_tpu_torch.models import detector, scoring
+    cuda = torch.device(DEV)
+    _set_env(AVD_DETECTOR="1", AVD_ATTN_FUSED="1", AVD_DETECTOR_PRESET="full",
+             AVD_DETECTOR_CKPT=None, AVD_DETECTOR_BLEND=None)
+    try:
+        cfg = scoring._bundle(cuda)[0]
+        check((cfg.image_size, cfg.width, cfg.depth, cfg.heads, cfg.tokens,
+               cfg.head_dim, cfg.fused_attn) ==
+              (224, 384, VIT_DEPTH, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM,
+               True), f"not the full preset with the kernel: {cfg}")
+        meta = clip_meta(W_MAIN, H_MAIN, fb.fps, fb.duration)
+        _reset_counters()
+        t0 = time.perf_counter()
+        env = pipeline.analyze_decoded(fb, speech_like(5.0), 16000, meta,
+                                       device=cuda)
+        first_s = time.perf_counter() - t0
+        launches = _counters()
+        log(f"detector path launches: {launches}")
+        video = env["video"]
+        check("detector_error" not in video,
+              f"detector_error: {video.get('detector_error')}")
+        det = video["detector"]
+        tl = np.asarray(det["timeline"])
+        check(tl.shape == (FRAMES_MAIN,) and np.isfinite(tl).all()
+              and tl.min() >= 0.0 and tl.max() <= 1.0,
+              f"detector timeline: shape {tl.shape}")
+        check(det["weights"] == "random_init", f"weights {det['weights']}")
+        check(launches["mha"] == VIT_DEPTH,
+              f"mha launched {launches['mha']} times, expected {VIT_DEPTH} "
+              f"(depth x one {VIT_BUCKET}-frame bucket)")
+        check(launches["solve_iteration"] == 0, "fused iteration ran")
+        check(video["timeline"] is video["timeline_ai"], "timeline alias")
+        schema.validate(env)
+        log(f"detector path envelope: label {env['result']['label']} "
+            f"ai_score {env['result']['ai_score']} P(ai) mean "
+            f"{tl.mean():.4f} min {tl.min():.4f} max {tl.max():.4f} "
+            f"({first_s:.2f} s, first call)")
+
+        # outside the analyzer's except: the scoring call itself
+        def best_of(fn, n):
+            best = None
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                best = min(best or 1e9, time.perf_counter() - t0)
+            return best, out
+
+        t_full, direct = best_of(
+            lambda: scoring.detector_timeline(frames, device=cuda), 2)
+        check(np.allclose(direct["timeline"], tl, atol=1e-6),
+              "the direct scoring call disagrees with the analyzer's")
+        t_resize, resized = best_of(
+            lambda: scoring.resize_frames(frames, cfg.image_size), 2)
+        t_score, _ = best_of(
+            lambda: scoring.detector_timeline_resized(resized, device=cuda),
+            3)
+        t_an, _ = best_of(lambda: video_an.analyze_batch(fb, device=cuda), 2)
+        log(f"detector steady: detector_timeline {t_full:.3f} s "
+            f"({FRAMES_MAIN / t_full:.2f} frames/s, host resize included: "
+            f"resize alone {t_resize:.3f} s), resized frames → timeline "
+            f"{t_score:.3f} s ({FRAMES_MAIN / t_score:.2f} frames/s), "
+            f"analyze_batch with the detector {t_an:.3f} s "
+            f"({FRAMES_MAIN / t_an:.2f} frames/s), threads {os.cpu_count()}")
+
+        busy = {}
+        for fused in ("1", "0"):
+            _set_env(AVD_ATTN_FUSED=fused)
+            scoring.detector_timeline_resized(resized, device=cuda)  # warm
+            busy[fused], n_dev, avgs = device_profile(
+                lambda: scoring.detector_timeline_resized(resized,
+                                                          device=cuda))
+            os.makedirs("chiprun_out", exist_ok=True)
+            path = os.path.join("chiprun_out",
+                                f"torch_profile_detector_fused{fused}.txt")
+            with open(path, "w") as f:
+                f.write(avgs.table(sort_by="self_device_time_total",
+                                   row_limit=30))
+            log(f"detector profile AVD_ATTN_FUSED={fused}: device busy "
+                f"{busy[fused]:.3f} ms per scoring call ({VIT_BUCKET}-frame "
+                f"bucket), {n_dev} device kernels and copies; table in "
+                f"{path}")
+        _set_env(AVD_ATTN_FUSED="1")
+
+        # card against CPU on a short clip: logits, not probabilities
+        short = scoring._prep_frames(pan_frames(4, 360, 640, seed=1),
+                                     cfg.image_size)
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            c, params, _, _ = scoring._bundle(dev)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                logits[dev] = detector.forward(
+                    params, torch.from_numpy(short).to(dev), c)[:, 0] \
+                    .float().cpu()
+            log(f"detector card vs cpu: {dev} "
+                f"{time.perf_counter() - t0:.2f} s")
+        err, ok = _close(logits["cuda"], logits["cpu"], 2e-2, 2e-2)
+        log(f"detector card vs cpu: logits {logits['cuda'].tolist()} vs "
+            f"{logits['cpu'].tolist()}, max |Δ| {err:.3g}")
+        check(ok, f"card and CPU logits differ by {err}")
+    finally:
+        _set_env(AVD_DETECTOR=None, AVD_ATTN_FUSED=None,
+                 AVD_DETECTOR_PRESET=None)
+    return launches
+
+
+def phase_fused_iter(frames):
+    """The video path with AVD_PALLAS_ITER=1 against the unfused run."""
+    import torch
+    from avd_tpu_torch import pipeline
+    from avd_tpu_torch.ingest import video_reader
+    from avd_tpu_torch.ops import video_features
+    cuda = torch.device(DEV)
+    clip = frames[:FRAMES_FUSED]
+    fps = 30.0
+    dur = FRAMES_FUSED * video_reader.sampling_step(fps) / fps
+    fb = video_reader.FrameBatch(clip, FRAMES_FUSED, fps, W_MAIN, H_MAIN,
+                                 dur)
+    wav = speech_like(3.0, seed=6)
+    meta = clip_meta(W_MAIN, H_MAIN, fps, dur)
+    windows = -(-FRAMES_FUSED // video_features._DEFAULT_CHUNK)
+    want = windows * len(LEVELS) * ROUNDS
+    env, launches, dev_s, per_window = {}, {}, {}, {}
+    _, prepped = _device_pass(clip)
+    try:
+        for fused in ("1", "0"):
+            _set_env(AVD_PALLAS_ITER=fused)
+            _reset_counters()
+            env[fused] = pipeline.analyze_decoded(fb, wav, 16000, dict(meta),
+                                                  device=cuda)
+            launches[fused] = _counters()
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _device_pass(clip, prepped)
+                times.append(time.perf_counter() - t0)
+            dev_s[fused] = min(times)
+            # one full 49-frame window under the profiler
+            one = clip[:video_features._DEFAULT_CHUNK]
+            busy, n_dev, _ = device_profile(
+                lambda: _device_pass(one, prepped[:1]))
+            per_window[fused] = (busy, n_dev)
+    finally:
+        _set_env(AVD_PALLAS_ITER=None)
+    log(f"fused iteration launches: on {launches['1']}, off {launches['0']}")
+    on, off = launches["1"], launches["0"]
+    check(on["solve_iteration"] == want,
+          f"flow_iter launched {on['solve_iteration']} times, expected "
+          f"{want} ({windows} windows x 4 levels x 3 rounds)")
+    check(on["warp_bilinear"] == 0 and on["box_blur_solve"] == 0,
+          "the fused path launched the warp or the blur+solve kernel")
+    check(off["solve_iteration"] == 0 and off["warp_bilinear"] == want
+          and off["box_blur_solve"] == want, f"unfused launches {off}")
+    s_on = env["1"]["video"]["summary"]
+    s_off = env["0"]["video"]["summary"]
+    rel_m = abs(s_on["flow_mean"] - s_off["flow_mean"]) / s_off["flow_mean"]
+    rel_v = abs(s_on["flow_var"] - s_off["flow_var"]) / \
+        max(s_off["flow_var"], 1e-12)
+    d_ai = abs(np.mean(env["1"]["timeline_binned"])
+               - np.mean(env["0"]["timeline_binned"]))
+    log(f"fused iteration vs unfused on the card: flow_mean "
+        f"{s_on['flow_mean']:.7f} vs {s_off['flow_mean']:.7f} (rel "
+        f"{rel_m:.3g}), flow_var rel {rel_v:.3g}, |Δai_score| {d_ai:.3g}")
+    check(rel_m <= 1e-3, f"flow_mean differs by {rel_m} relative")
+    check(rel_v <= 1e-2 or abs(s_on["flow_var"] - s_off["flow_var"]) <= 1e-4,
+          f"flow_var differs by {rel_v} relative")
+    check(d_ai <= 1e-3, f"ai_score differs by {d_ai}")
+    check(env["1"]["result"]["label"] == env["0"]["result"]["label"],
+          "labels differ")
+    log(f"fused iteration device pass ({FRAMES_FUSED} frames, prep "
+        f"precomputed): fused {dev_s['1']:.4f} s, unfused "
+        f"{dev_s['0']:.4f} s; one 49-frame window: fused "
+        f"{per_window['1'][1]} device kernels and copies, "
+        f"{per_window['1'][0]:.3f} ms busy; unfused {per_window['0'][1]}, "
+        f"{per_window['0'][0]:.3f} ms busy")
+    return on
 
 
 def kernel_entry(name, source, replaces, rows, max_err, launches):
@@ -414,6 +745,22 @@ def kernel_entry(name, source, replaces, rows, max_err, launches):
             "unit": f"one full window: {ROUNDS} launches at each of "
                     f"[{PAIRS},5,H,W], H=W in {list(LEVELS)}",
             "per_level_ms": {str(r[0]): r[1] for r in rows}}
+
+
+def mha_entry(rows, max_err, launches):
+    """The attention kernel on the detector path: ``VIT_DEPTH`` launches at
+    the 256-frame bucket per 145-frame clip."""
+    shape, ms, plain, lib, bnd, by = rows[0]
+    return {"name": "mha", "route": "cuda",
+            "source": "avd_tpu_torch/csrc/attention.cu",
+            "replaces": "avd_tpu/ops/pallas/attention.py:64",
+            "launches": launches, "max_abs_err": max_err,
+            "ms": VIT_DEPTH * ms, "plain_ms": VIT_DEPTH * plain,
+            "bound_ms": VIT_DEPTH * bnd, "bound_by": by,
+            "library_ms": VIT_DEPTH * lib,
+            "unit": f"one {FRAMES_MAIN}-frame clip: {VIT_DEPTH} launches at "
+                    f"{list(shape)} bf16",
+            "per_shape_ms": {str(list(r[0])): r[1] for r in rows}}
 
 
 def main():
@@ -441,9 +788,13 @@ def main():
         gen.manual_seed(0)
         warp_rows, warp_err = phase_warp(gen)
         blur_rows, blur_err = phase_blur_solve(gen)
-        launches, frames, e2e_s = phase_main_path()
+        launches, frames, fb, e2e_s = phase_main_path()
         phase_card_vs_cpu()
         phase_profile(frames, e2e_s)
+        mha_rows, mha_err = phase_mha(gen)
+        iter_rows, iter_err = phase_flow_iter(gen)
+        det_launches = phase_detector(frames, fb)
+        iter_launches = phase_fused_iter(frames)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -460,7 +811,16 @@ def main():
         kernel_entry("box_blur_solve", "avd_tpu_torch/csrc/blur_solve.cu",
                      "avd_tpu/ops/pallas/blur_solve.py:97", blur_rows,
                      blur_err, launches["box_blur_solve"]),
+        kernel_entry("solve_iteration", "avd_tpu_torch/csrc/flow_iter.cu",
+                     "avd_tpu/ops/pallas/flow_iter.py:222",
+                     iter_rows[:len(LEVELS)], iter_err,
+                     iter_launches["solve_iteration"]),
+        mha_entry(mha_rows, mha_err, det_launches["mha"]),
     ]
+    # what the fused round replaces: warp kernel + PyTorch update +
+    # blur+solve kernel, same unit
+    kernels[2]["unfused_sequence_ms"] = ROUNDS * sum(
+        r[6] for r in iter_rows[:len(LEVELS)])
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,10 +13,14 @@ import torch
 
 from avd_tpu.ops import band as jband
 from avd_tpu.ops import flow as jflow
+from avd_tpu.models import detector as jdetector
 from avd_tpu.ops import resize as jresize
+from avd_tpu.ops.pallas import flow_iter as jflow_iter
+from avd_tpu_torch.models import detector as tdetector
 from avd_tpu_torch.ops import band as tband
 from avd_tpu_torch.ops import flow as tflow
 from avd_tpu_torch.ops import resize as tresize
+from avd_tpu_torch.ops.kernels import flow_iter as tflow_iter
 
 torch.set_num_threads(1)
 
@@ -104,3 +108,19 @@ def test_level_plan(h, w, levels):
 def test_border_taper(h, w):
     np.testing.assert_array_equal(tflow._border_taper(h, w),
                                   jflow._border_taper(h, w))
+
+
+def test_border_scale():
+    """The taper factors handed to the fused-iteration kernel are the JAX
+    kernel's, and the ones the port's update arithmetic uses."""
+    assert tflow_iter.BORDER_SCALE == jflow_iter._BORDER_SCALE
+    np.testing.assert_array_equal(tflow._BORDER_SCALE, jflow._BORDER_SCALE)
+    np.testing.assert_array_equal(
+        tflow._BORDER_SCALE, np.asarray(tflow_iter.BORDER_SCALE, np.float32))
+    assert tflow._BORDER == len(tflow_iter.BORDER_SCALE) == 5
+
+
+@pytest.mark.parametrize("preset", sorted(jdetector.PRESETS))
+def test_detector_presets(preset):
+    assert sorted(tdetector.PRESETS) == sorted(jdetector.PRESETS)
+    assert tdetector.PRESETS[preset] == jdetector.PRESETS[preset]

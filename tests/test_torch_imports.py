@@ -20,8 +20,9 @@ from avd_tpu_torch import device as device_mod
 from avd_tpu_torch import pipeline
 from avd_tpu_torch.analyzers import video as video_an
 from avd_tpu_torch.ingest import video_reader
+from avd_tpu_torch.models import detector, scoring
 from avd_tpu_torch.ops import audio_features, video_features
-from avd_tpu_torch.ops.kernels import blur_solve, warp
+from avd_tpu_torch.ops.kernels import attention, blur_solve, flow_iter, warp
 
 torch.set_num_threads(1)
 
@@ -39,6 +40,11 @@ bad = sorted(k for k in sys.modules
              or k == "avd_tpu" or k.startswith("avd_tpu."))
 print(len(names), bad)
 assert not bad, bad
+for n in ("avd_tpu_torch.models", "avd_tpu_torch.models.detector",
+          "avd_tpu_torch.models.convert", "avd_tpu_torch.models.scoring",
+          "avd_tpu_torch.ops.kernels.attention",
+          "avd_tpu_torch.ops.kernels.flow_iter"):
+    assert n in names, n
 """
 
 
@@ -47,7 +53,7 @@ def test_port_imports_no_jax_and_no_avd_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 20, r.stdout
+    assert n_modules >= 26, r.stdout
 
 
 def _frames():
@@ -69,6 +75,16 @@ _ENTRY_POINTS = {
     "analyze_waveform":
         lambda: audio_features.analyze_waveform(np.zeros(16000, np.float32),
                                                 16000),
+    "cast_for_inference": lambda: detector.cast_for_inference(
+        detector.init_params(0, detector.ViTConfig(
+            image_size=32, width=64, depth=1, heads=2))),
+    "scoring._bundle": lambda: scoring._bundle(),
+    "scoring.input_size": lambda: scoring.input_size(),
+    "scoring._score_prepped": lambda: scoring._score_prepped(
+        np.zeros((1, 224, 224, 3), np.float32)),
+    "scoring.detector_timeline": lambda: scoring.detector_timeline(_frames()),
+    "scoring.detector_timeline_resized":
+        lambda: scoring.detector_timeline_resized(_frames()),
     "analyze_decoded": lambda: pipeline.analyze_decoded(
         video_reader.FrameBatch(_frames(), 2, 30.0, 64, 64, 1.0),
         np.zeros(16000, np.float32), 16000, {}),
@@ -79,6 +95,7 @@ _ENTRY_POINTS = {
 def test_entry_point_without_device_raises_when_cuda_absent(name,
                                                             monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("AVD_DETECTOR", "1")  # the scoring entry points run
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _ENTRY_POINTS[name]()
 
@@ -94,9 +111,21 @@ def test_cpu_tensors_take_the_plain_versions():
     src = torch.from_numpy(rng.random((2, 5, 40, 48), np.float32))
     fl = torch.from_numpy((rng.random((2, 2, 40, 48), np.float32) - 0.5) * 6)
     m = torch.from_numpy(rng.random((2, 5, 40, 48), np.float32))
-    before = (warp.LAUNCHES, blur_solve.LAUNCHES)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 9, 2, 16))
+                                .astype(np.float32)).bfloat16()
+               for _ in range(3))
+
+    def counts():
+        return (warp.LAUNCHES, blur_solve.LAUNCHES, flow_iter.LAUNCHES,
+                attention.LAUNCHES)
+
+    before = counts()
     out_w = warp.warp_bilinear(src, fl)
     out_b = blur_solve.box_blur_solve(m)
-    assert (warp.LAUNCHES, blur_solve.LAUNCHES) == before == (0, 0)
+    out_f = flow_iter.solve_iteration(src, m, fl)
+    out_a = attention.attention(q, k, v)
+    assert counts() == before == (0, 0, 0, 0)
     assert torch.equal(out_w, warp.warp_bilinear_plain(src, fl))
     assert torch.equal(out_b, blur_solve.box_blur_solve_plain(m))
+    assert torch.equal(out_f, flow_iter.solve_iteration_plain(src, m, fl))
+    assert torch.equal(out_a, attention.attention_plain(q, k, v))
