@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/avd_tpu_torch_kernels/lib<name>-<digest>.so`` under the
-checkout, at first use; the digest covers the source and the flags, so an
-edited source rebuilds and an unchanged one loads the cached library.
-``build_all`` starts one nvcc per source at once and waits for all.
+checkout, at first use; the digest covers the source, every header
+``csrc/*.cuh`` and the flags, so an edited source or header rebuilds and
+an unchanged one loads the cached library.  ``build_all`` starts one nvcc
+per source at once and waits for all; what nvcc printed (``-Xptxas -v``:
+registers, shared memory and spills of each kernel) stays in
+``BUILD_LOGS``.
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no nvcc.
 """
@@ -12,6 +15,7 @@ machine with no nvcc.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -30,8 +34,10 @@ SOURCES = ("warp", "blur_solve", "flow_iter", "attention")
 # multiply-add contraction), so a near-singular 2×2 solve does not turn a
 # last-bit difference into a visible one.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
 
+BUILD_LOGS: dict = {}  # source name → nvcc's output of the build in this run
 _lock = threading.Lock()
 _libs: dict = {}
 
@@ -50,8 +56,11 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for path in [os.path.join(CSRC, f"{name}.cu")] + headers:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -75,6 +84,7 @@ def _finish(name: str, started) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    BUILD_LOGS[name] = log
     os.replace(tmp, out)  # atomic: a cut build never leaves a partial .so
 
 

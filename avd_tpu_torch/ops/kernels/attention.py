@@ -4,10 +4,13 @@ Port of ``avd_tpu/ops/pallas/attention.py``: ``mha`` computes
 ``softmax(Q·Kᵀ·D^-½)·V`` per (batch, head) on [B, H, T, D] bf16 with f32
 scores, an exact f32 row softmax, P rounded to bf16 before P·V, f32
 accumulation and a bf16 result; ``attention`` is the detector block's form,
-[B, T, H, D] q/k/v → [B, T, H·D].  The kernel is ``csrc/attention.cu``; it
-reads q, k, v and writes o through element strides, so ``attention`` hands
-it the block's strided views of the qkv tensor and ``mha`` its head-major
-tensors, with no copy in either.  ``mha_plain`` / ``attention_plain`` are
+[B, T, H, D] q/k/v → [B, T, H·D].  ``csrc/attention.cu`` holds two kernels:
+the tensor-core one (``mma.sync`` products, the score row in registers) for
+up to ``MMA_MAX_TOKENS`` tokens, and the general one on the float32 cores
+for longer sequences; ``variant`` picks by shape alone.  Both read q, k, v
+and write o through element strides, so ``attention`` hands them the
+block's strided views of the qkv tensor and ``mha`` its head-major tensors,
+with no copy in either.  ``mha_plain`` / ``attention_plain`` are
 the same function in plain PyTorch (f32 matmuls of the bf16 values, the
 softmax written out), with no fused-attention library call.
 """
@@ -21,9 +24,11 @@ import torch
 
 from avd_tpu_torch.ops.kernels import _build
 
-LAUNCHES = 0  # kernel launches; raised only where the kernel is launched
+LAUNCHES = 0  # kernel launches; raised only where a kernel is launched
+VARIANT_LAUNCHES = {"mma": 0, "general": 0}  # the same, by kernel
 
 MAX_HEAD_DIM = 128
+MMA_MAX_TOKENS = 208  # 16 · the largest key-tile count attention.cu builds
 _SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
 
 
@@ -47,22 +52,37 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return o.transpose(1, 2).reshape(b, t, h * d)
 
 
+def variant(T: int, D: int) -> str:
+    """Which kernel a [.., T, .., D] call launches: ``"mma"`` (tensor
+    cores; every D the wrapper takes, T up to ``MMA_MAX_TOKENS``) or
+    ``"general"`` (float32 cores).  A pure function of the shape: no build
+    or launch result changes the choice."""
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernel takes a head dim that is a "
+                         f"multiple of 8 up to {MAX_HEAD_DIM}, got {D}")
+    return "mma" if T <= MMA_MAX_TOKENS else "general"
+
+
 _fns = None
 
 
 def _lib():
+    """{"mma": fn, "general": fn, "smem": fn} of the built library."""
     global _fns
     if _fns is None:
         lib = _build.load("attention")
-        fn = lib.avd_mha
         strides = ctypes.POINTER(ctypes.c_int64)
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                       + [strides] * 4 + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        smem = lib.avd_mha_smem_bytes
-        smem.argtypes = [ctypes.c_int, ctypes.c_int]
-        smem.restype = ctypes.c_int64
-        _fns = (fn, smem)
+        fns = {"mma": lib.avd_mha_mma, "general": lib.avd_mha_general}
+        for fn in fns.values():
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                           + [strides] * 4 + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        fns["smem"] = lib.avd_mha_smem_bytes
+        fns["smem"].argtypes = [ctypes.c_int, ctypes.c_int]
+        fns["smem"].restype = ctypes.c_int64
+        if lib.avd_mha_mma_max_tokens() != MMA_MAX_TOKENS:
+            raise RuntimeError("attention.cu and MMA_MAX_TOKENS disagree")
+        _fns = fns
     return _fns
 
 
@@ -84,25 +104,26 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(v.shape)}; want three equal 4-D shapes")
     B, T, H, D = q.shape[0], q.shape[token_axis], q.shape[head_axis], \
         q.shape[3]
-    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"the attention kernel takes a head dim that is a "
-                         f"multiple of 8 up to {MAX_HEAD_DIM}, got {D}")
-    fn, smem = _lib()
-    need = smem(T, D)
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"T={T}, D={D} needs {need} bytes of shared memory "
-                         f"per block; the card has {_SMEM_LIMIT}")
+    which = variant(T, D)
+    fns = _lib()
+    if which == "general":
+        need = fns["smem"](T, D)
+        if need > _SMEM_LIMIT:
+            raise ValueError(f"T={T}, D={D} needs {need} bytes of shared "
+                             f"memory per block; the card has {_SMEM_LIMIT}")
     o = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
     tensors = [_dense_rows(x) for x in (q, k, v)] + [o]
     strides = [(ctypes.c_int64 * 3)(x.stride(0), x.stride(token_axis),
                                     x.stride(head_axis)) for x in tensors]
     with torch.cuda.device(q.device):
-        err = fn(*(x.data_ptr() for x in tensors), B, H, T, D, *strides,
-                 1.0 / math.sqrt(D),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        err = fns[which](*(x.data_ptr() for x in tensors), B, H, T, D,
+                         *strides, 1.0 / math.sqrt(D),
+                         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"attention kernel ({which}) launch failed: "
+                           f"cudaError {err}")
     LAUNCHES += 1
+    VARIANT_LAUNCHES[which] += 1
     return o
 
 
@@ -122,8 +143,8 @@ def _on_cpu(q, k, v) -> bool:
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """[B, H, T, D] bf16 q, k, v → [B, H, T, D] bf16.
 
-    CPU tensors take ``mha_plain``; CUDA tensors launch the kernel or
-    raise."""
+    CPU tensors take ``mha_plain``; CUDA tensors launch the kernel that
+    ``variant`` names or raise."""
     if _on_cpu(q, k, v):
         return mha_plain(q, k, v)
     return _launch(q, k, v, token_axis=2, head_axis=1)
@@ -135,7 +156,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     k, v (strided views are read in place) → [B, T, H·D] bf16.
 
     CPU tensors take ``attention_plain``; CUDA tensors launch the kernel
-    or raise."""
+    that ``variant`` names or raise."""
     if _on_cpu(q, k, v):
         return attention_plain(q, k, v)
     o = _launch(q, k, v, token_axis=1, head_axis=2)

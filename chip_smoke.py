@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero before the result line:
    |Δ| <= 1e-5, out-of-bounds exactly 0), with kernel, plain and
    ``grid_sample`` times and the bytes bound;
 4. blur+solve: the same on positive-semidefinite M fields (atol 2e-4,
-   rtol 1e-3);
+   rtol 1e-3; the measured |Δ| is 0), plus the tail window's four levels
+   ([12,5,H,W]; its 40² level takes the small tile) and ragged and small
+   planes ([3,5,37,53], [2,5,16,16]);
 5. main path: 145 panning 1080p BGR frames and a 5 s speech-like waveform
    through ``pipeline.analyze_decoded`` on the card; the launch counters
    must rise by 48 each (4 windows × 4 levels × 3 rounds); the envelope
@@ -25,10 +27,14 @@ Phases, in order; any failure exits non-zero before the result line:
    precomputed): the device-busy time and the card's idle share of the
    end-to-end run, with the table of kernels by device time written to
    ``chiprun_out/torch_profile_window.txt``;
-8. mha: the attention kernel against its plain version at the detector's
-   shapes ([256,6,197,64], [12,6,197,64], [8,4,17,64]) and an odd one
-   (atol/rtol 2e-2 on bf16), with kernel, plain and
-   ``scaled_dot_product_attention`` times and the bound;
+8. mha: the attention kernels against their plain version at the
+   detector's shapes ([256,6,197,64], [12,6,197,64], [8,4,17,64]) and an
+   odd one (atol/rtol 2e-2 on bf16), with kernel, plain and
+   ``scaled_dot_product_attention`` times and the bound; the same on
+   large scores (q and k times 8); then token counts
+   at the edges of the 16-key tiles (16, 17, 32, 33, 65, 197, 208) at head
+   dims 64, 8 and 128 on the tensor-core kernel and a shape past its
+   largest instance on the general kernel, with the per-kernel counters;
 9. flow_iter: the fused Farnebäck round against its plain version at
    [48,·,H,W] for the four levels and [12,·,320,320] (atol 5e-4, rtol
    1e-3), timed beside the unfused sequence it replaces (warp kernel,
@@ -37,7 +43,8 @@ Phases, in order; any failure exits non-zero before the result line:
     ``AVD_ATTN_FUSED=1`` and the ``full`` ViT (seeded weights) through
     ``pipeline.analyze_decoded``: 145 finite probabilities, no
     ``detector_error``, the attention counter up by 6 (depth × one
-    256-frame bucket); logits card against CPU within 2e-2; frames/s of
+    256-frame bucket), all six on the tensor-core kernel; logits card
+    against CPU within 2e-2; frames/s of
     the scoring call and of the analyzer, and the device-busy time of one
     scoring call with and without the kernel;
 11. fused-iteration path: 61 of the frames with ``AVD_PALLAS_ITER=1``:
@@ -188,7 +195,13 @@ def phase_device():
 def phase_build():
     from avd_tpu_torch.ops.kernels import _build
     secs = _build.build_all()
-    log(f"build: {len(_build.SOURCES)} CUDA sources in {secs:.2f} s")
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", "nvcc_ptxas.txt")
+    with open(path, "w") as f:
+        for name, text in _build.BUILD_LOGS.items():
+            f.write(f"== {name}.cu\n{text}\n")
+    log(f"build: {len(_build.SOURCES)} CUDA sources in {secs:.2f} s; "
+        f"registers and shared memory per kernel in {path}")
 
 
 def _warp_cases(h, gen, pairs=PAIRS):
@@ -246,10 +259,9 @@ def phase_warp(gen):
     return rows, max_err
 
 
-def _psd_m(h, gen):
+def _psd_m(gen, b, h, w):
     import torch
-    r4, r5, r6, h1, h2 = torch.randn((5, PAIRS, h, h), generator=gen,
-                                     device=DEV)
+    r4, r5, r6, h1, h2 = torch.randn((5, b, h, w), generator=gen, device=DEV)
     return torch.stack([r4 * r4 + r6 * r6, (r4 + r5) * r6, r5 * r5 + r6 * r6,
                         h1, h2], dim=1).contiguous()
 
@@ -258,21 +270,25 @@ def phase_blur_solve(gen):
     import torch
     from avd_tpu_torch.ops.kernels import blur_solve
     rows, max_err = [], 0.0
-    for h in LEVELS:
-        m = _psd_m(h, gen)
+    # the full window's levels, the tail window's (its 40² level takes the
+    # small tile), then ragged and small planes
+    shapes = [(PAIRS, h, h) for h in LEVELS] + \
+        [(12, h, h) for h in LEVELS] + [(3, 37, 53), (2, 16, 16)]
+    for b, h, w in shapes:
+        m = _psd_m(gen, b, h, w)
         out = blur_solve.box_blur_solve(m)
         ref = blur_solve.box_blur_solve_plain(m)
-        err = float((out - ref).abs().max())
-        excess = float(((out - ref).abs() - (2e-4 + 1e-3 * ref.abs())).max())
-        check(excess <= 0.0, f"blur+solve {h}: |Δ| {err} over atol 2e-4 "
-                             "rtol 1e-3")
+        err, ok = _close(out, ref, 2e-4, 1e-3)
+        check(ok, f"blur+solve [{b},5,{h},{w}]: |Δ| {err} over atol 2e-4 "
+                  "rtol 1e-3")
         max_err = max(max_err, err)
         ms = time_ms(lambda: blur_solve.box_blur_solve(m))
         plain = time_ms(lambda: blur_solve.box_blur_solve_plain(m))
-        px = PAIRS * h * h
-        bnd, by = bound_ms(px * (5 + 2) * 4, px * 160)
-        rows.append((h, ms, plain, None, bnd, by))
-        log(f"blur_solve [{PAIRS},5,{h},{h}]: kernel {ms:.4f} ms, plain "
+        px = b * h * w
+        bnd, by = bound_ms(px * (5 + 2) * 4, px * 170)
+        if b == PAIRS:
+            rows.append((h, ms, plain, None, bnd, by))
+        log(f"blur_solve [{b},5,{h},{w}]: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}); max |Δ| {err:.3g}")
     return rows, max_err
 
@@ -285,8 +301,11 @@ def _kernel_modules():
 
 
 def _reset_counters():
-    for mod in _kernel_modules().values():
+    mods = _kernel_modules()
+    for mod in mods.values():
         mod.LAUNCHES = 0
+    for which in mods["mha"].VARIANT_LAUNCHES:
+        mods["mha"].VARIANT_LAUNCHES[which] = 0
 
 
 def _counters():
@@ -416,6 +435,15 @@ def device_profile(fn):
     return busy_ms, sum(e.count for e in dev), avgs
 
 
+def _kernel_ms(avgs, name):
+    """Device ms and launches of the kernels whose name holds ``name``."""
+    import torch
+    rows = [e for e in avgs if name in e.key
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in rows) / 1e3, \
+        sum(e.count for e in rows)
+
+
 def _device_pass(frames, prepped=None):
     """``compute_features`` on the card with the host prep precomputed;
     returns (features, the prepped chunks)."""
@@ -443,6 +471,11 @@ def phase_profile(frames, e2e_s):
     log(f"profile: device busy {busy_ms:.3f} ms per {FRAMES_MAIN}-frame "
         f"clip; idle share {1 - busy_ms / 1e3 / e2e_s:.4f} of the "
         f"{e2e_s:.3f} s end-to-end run; table in {path}")
+    for name in ("blur_solve_kernel", "warp_bilinear_kernel"):
+        ms, n = _kernel_ms(avgs, name)
+        check(n == 48, f"the profile holds {n} launches of {name}")
+        log(f"profile: {name} {ms:.3f} ms in {n} launches "
+            f"({100 * ms / busy_ms:.2f} % of the device-busy time)")
 
 
 def _close(out, ref, atol, rtol):
@@ -485,6 +518,47 @@ def phase_mha(gen):
         log(f"mha [{b},{h},{t},{d}]: kernel {ms:.4f} ms, plain {plain:.4f} "
             f"ms, scaled_dot_product_attention {lib:.4f} ms, bound "
             f"{bnd:.4f} ms ({by}); max |Δ| {max(err, err_h):.3g}")
+        check(attention.variant(t, d) == "mma", f"variant({t}, {d})")
+
+    # large scores (q and k times 8, rows nearly one-hot): the tensor-core
+    # kernel's base-2 exponent with the scale folded in, where it is largest
+    b, h, t, d = 4, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM
+    qkv = torch.randn((b, t, 3, h, d), generator=gen, device=DEV).bfloat16()
+    q, k, v = qkv[:, :, 0] * 8, qkv[:, :, 1] * 8, qkv[:, :, 2]
+    err, ok = _close(attention.attention(q, k, v),
+                     attention.attention_plain(q, k, v), 2e-2, 2e-2)
+    check(ok, f"mha on large scores [{b},{h},{t},{d}]: |Δ| {err} over "
+              "atol/rtol 2e-2")
+    max_err = max(max_err, err)
+    log(f"mha [{b},{h},{t},{d}] with q and k times 8: max |Δ| {err:.3g}")
+
+    # tile edges on the tensor-core kernel, then the general kernel
+    edges = [(4, 3, t, d) for d in (64, 8, 128)
+             for t in (16, 17, 32, 33, 65, 197, 208)]
+    beyond = [(2, 3, attention.MMA_MAX_TOKENS + 1, 64), (2, 3, 300, 40)]
+    for which, cases in (("mma", edges), ("general", beyond)):
+        before = dict(attention.VARIANT_LAUNCHES)
+        worst = 0.0
+        for b, h, t, d in cases:
+            check(attention.variant(t, d) == which,
+                  f"variant({t}, {d}) is not {which}")
+            qkv = torch.randn((b, t, 3, h, d), generator=gen,
+                              device=DEV).bfloat16()
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            err, ok = _close(attention.attention(q, k, v),
+                             attention.attention_plain(q, k, v), 2e-2, 2e-2)
+            check(ok, f"mha ({which}) [{b},{h},{t},{d}]: |Δ| {err} over "
+                      "atol/rtol 2e-2")
+            worst = max(worst, err)
+        after = attention.VARIANT_LAUNCHES
+        other = "general" if which == "mma" else "mma"
+        check(after[which] == before[which] + len(cases)
+              and after[other] == before[other],
+              f"variant counters {before} -> {after} over {len(cases)} "
+              f"{which} shapes")
+        max_err = max(max_err, worst)
+        log(f"mha {which} kernel at {len(cases)} edge shapes "
+            f"{[c[2:] for c in cases]}: max |Δ| {worst:.3g}")
     return rows, max_err
 
 
@@ -582,6 +656,9 @@ def phase_detector(frames, fb):
         check(launches["mha"] == VIT_DEPTH,
               f"mha launched {launches['mha']} times, expected {VIT_DEPTH} "
               f"(depth x one {VIT_BUCKET}-frame bucket)")
+        by_kernel = dict(_kernel_modules()["mha"].VARIANT_LAUNCHES)
+        check(by_kernel == {"mma": VIT_DEPTH, "general": 0},
+              f"the detector path's mha launches by kernel: {by_kernel}")
         check(launches["solve_iteration"] == 0, "fused iteration ran")
         check(video["timeline"] is video["timeline_ai"], "timeline alias")
         schema.validate(env)
@@ -630,9 +707,13 @@ def phase_detector(frames, fb):
             with open(path, "w") as f:
                 f.write(avgs.table(sort_by="self_device_time_total",
                                    row_limit=30))
+            mha_ms, mha_n = _kernel_ms(avgs, "::mha_")
+            check(mha_n == (VIT_DEPTH if fused == "1" else 0),
+                  f"AVD_ATTN_FUSED={fused}: {mha_n} mha launches profiled")
             log(f"detector profile AVD_ATTN_FUSED={fused}: device busy "
                 f"{busy[fused]:.3f} ms per scoring call ({VIT_BUCKET}-frame "
-                f"bucket), {n_dev} device kernels and copies; table in "
+                f"bucket), {n_dev} device kernels and copies, of which the "
+                f"mha kernel {mha_ms:.3f} ms in {mha_n} launches; table in "
                 f"{path}")
         _set_env(AVD_ATTN_FUSED="1")
 

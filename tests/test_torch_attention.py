@@ -7,6 +7,8 @@ the measured max |Δ| is one bf16 ulp of the output (3.9e-3 at |o| < 1,
 7.8e-3 above).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from avd_tpu.ops.pallas import attention as pattn
+from avd_tpu_torch.models import detector as tdetector
 from avd_tpu_torch.ops.kernels import attention as tattn
 
 torch.set_num_threads(1)
@@ -100,3 +103,100 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert torch.equal(o2, tattn.mha_plain(q.transpose(1, 2),
                                            k.transpose(1, 2),
                                            v.transpose(1, 2)))
+
+
+def _preset_shape(preset):
+    """(tokens, head dim) of a detector preset, from its dict and the
+    dataclass defaults (``moe_small`` cannot be built yet)."""
+    kw = {f.name: f.default for f in dataclasses.fields(tdetector.ViTConfig)}
+    kw.update(tdetector.PRESETS[preset])
+    tokens = (kw["image_size"] // kw["patch"]) ** 2 + 1
+    return tokens, kw["width"] // kw["heads"]
+
+
+@pytest.mark.parametrize("preset", sorted(tdetector.PRESETS))
+def test_variant_sends_every_preset_to_the_tensor_core_kernel(preset):
+    t, d = _preset_shape(preset)
+    assert (t, d) in {(17, 64), (197, 64)}
+    assert tattn.variant(t, d) == "mma"
+
+
+@pytest.mark.parametrize("t,d,want", [
+    (65, 64, "mma"),                       # the 128 px training size
+    (17, 8, "mma"), (197, 64, "mma"),      # _SHAPES above
+    (33, 16, "mma"), (1, 16, "mma"),
+    (16, 128, "mma"), (208, 128, "mma"), (208, 8, "mma"),
+    (209, 64, "general"), (300, 40, "general"), (4000, 64, "general"),
+])
+def test_variant_is_a_function_of_the_shape_alone(t, d, want):
+    assert tattn.MMA_MAX_TOKENS == 208
+    assert tattn.variant(t, d) == want
+    assert tattn.variant(t, d) == want  # no state between calls
+
+
+@pytest.mark.parametrize("d", [0, 4, 12, 136, 256])
+def test_variant_refuses_a_head_dim_the_kernels_do_not_take(d):
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tattn.variant(17, d)
+
+
+def _tile_walk_model(q, k, v, tile=16):
+    """The tensor-core kernel's walk over one [B, H, T, D] problem, in plain
+    torch: keys and values padded with zero rows to a multiple of 16, query
+    rows taken 16 at a time (the last tile zero-padded), scores scaled in
+    f32, padded key columns set to −∞, exact row softmax normalised by one
+    reciprocal per row, P rounded to bf16, f32 sums, bf16 output; rows past
+    T are dropped."""
+    b, h, t, d = q.shape
+    tp = -(-t // tile) * tile
+    pad = (0, 0, 0, tp - t)
+    qp, kp, vp = (torch.nn.functional.pad(x.float(), pad) for x in (q, k, v))
+    scale = float(1.0 / np.sqrt(d))
+    dead = torch.arange(tp) >= t
+    out = torch.empty((b, h, tp, d), dtype=torch.bfloat16)
+    for r0 in range(0, tp, tile):
+        s = (qp[:, :, r0:r0 + tile] @ kp.mT) * scale
+        s = s.masked_fill(dead, float("-inf"))
+        e = torch.exp(s - s.max(dim=-1, keepdim=True).values)
+        p = (e * (1.0 / e.sum(dim=-1, keepdim=True))).bfloat16()
+        assert not p[..., dead].any()
+        out[:, :, r0:r0 + tile] = (p.float() @ vp).bfloat16()
+    return out[:, :, :t]
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+                      - 7)
+
+
+@pytest.mark.parametrize("t", [16, 17, 33, 197])
+def test_tile_walk_model_matches_mha_plain(t):
+    d = 64 if t == 197 else 16
+    q, k, v = (_torch(x).transpose(1, 2)
+               for x in _qkv((2, t, 2, d), seed=10 + t))
+    want = tattn.mha_plain(q, k, v).float()
+    got = _tile_walk_model(q, k, v).float()
+    assert got.shape == want.shape
+    ulp = _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    assert bool(((got - want).abs() <= ulp).all())
+
+
+def test_an_unmasked_pad_column_would_show():
+    """The model without its −∞ mask is visibly wrong at T = 17: the check
+    above can see the fault it guards against."""
+    q, k, v = (_torch(x).transpose(1, 2)
+               for x in _qkv((1, 17, 2, 16), seed=4))
+    want = tattn.mha_plain(q, k, v).float()
+    pad = (0, 0, 0, 15)
+    kp, vp = (torch.nn.functional.pad(x, pad) for x in (k, v))
+    unmasked = tattn.mha_plain(torch.nn.functional.pad(q, pad), kp,
+                               vp)[:, :, :17].float()
+    assert float((unmasked - want).abs().max()) > 2e-2
+
+
+def test_cpu_calls_count_no_variant_launch():
+    q, k, v = (_torch(x) for x in _qkv((1, 17, 2, 8), seed=5))
+    before = dict(tattn.VARIANT_LAUNCHES)
+    tattn.attention(q, k, v)
+    assert tattn.VARIANT_LAUNCHES == before == {"mma": 0, "general": 0}

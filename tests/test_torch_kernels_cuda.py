@@ -6,7 +6,8 @@ them on a GPU machine (which needs no jax) with
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 The shapes here are the awkward ones (widths off the 32-pixel tile, tiny
-planes, a batch of one); ``chip_smoke.py`` covers the main path's shapes.
+planes, a batch of one, token counts at the edges of the 16-key tiles);
+``chip_smoke.py`` covers the main path's shapes.
 """
 
 import pytest
@@ -45,17 +46,40 @@ def test_warp_kernel_matches_plain(gen, b, h, w, scale):
     assert not out[~inb].any()
 
 
-@pytest.mark.parametrize("b,h,w", _SHAPES)
-def test_blur_solve_kernel_matches_plain(gen, b, h, w):
+def _psd_m(gen, b, h, w):
     r4, r5, r6, h1, h2 = torch.randn((5, b, h, w), generator=gen,
                                      device="cuda")
-    m = torch.stack([r4 * r4 + r6 * r6, (r4 + r5) * r6, r5 * r5 + r6 * r6,
-                     h1, h2], dim=1).contiguous()
+    return torch.stack([r4 * r4 + r6 * r6, (r4 + r5) * r6, r5 * r5 + r6 * r6,
+                        h1, h2], dim=1).contiguous()
+
+
+# the 32×8 tile (few blocks: the tail window's 40² level among them), the
+# 32×40 tile (many), ragged edges of both
+_BLUR_SHAPES = _SHAPES + [(2, 16, 16), (12, 320, 320), (12, 160, 160),
+                          (12, 80, 80), (12, 40, 40), (48, 40, 40),
+                          (48, 80, 80), (30, 160, 160), (40, 100, 150),
+                          (900, 33, 17)]
+
+
+@pytest.mark.parametrize("b,h,w", _BLUR_SHAPES)
+def test_blur_solve_kernel_matches_plain(gen, b, h, w):
+    m = _psd_m(gen, b, h, w)
     before = blur_solve.LAUNCHES
     out = blur_solve.box_blur_solve(m)
     assert blur_solve.LAUNCHES == before + 1
     ref = blur_solve.box_blur_solve_plain(m)
     assert torch.allclose(out, ref, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("b,h,w", [(3, 37, 53), (12, 320, 320),
+                                   (12, 40, 40), (48, 40, 40)])
+def test_blur_solve_kernel_keeps_the_plain_order_of_sums(gen, b, h, w):
+    """Each 15-tap sum runs left to right from tap 0, rows before columns,
+    and the solve is not contracted: the kernel equals the plain version
+    bit for bit, on both tiles."""
+    m = _psd_m(gen, b, h, w)
+    assert torch.equal(blur_solve.box_blur_solve(m),
+                       blur_solve.box_blur_solve_plain(m))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -110,17 +134,62 @@ def _qkv(gen, shape):
             for _ in range(3)]
 
 
-@pytest.mark.parametrize("b,h,t,d", [(2, 3, 17, 8), (8, 4, 17, 64),
-                                     (3, 6, 197, 64), (1, 2, 65, 128),
-                                     (2, 1, 1, 16), (1, 5, 300, 40)])
+# token counts at the edges of the 16-key tiles and of the three instances
+# (T <= 32, 80, 208), head dims at the edges of theirs (16, 64, 128), and
+# shapes past the largest instance, which take the general kernel
+_MHA_SHAPES = [(2, 3, t, d) for t in (16, 17, 32, 33, 65, 197, 208)
+               for d in (64, 8, 128)] + \
+    [(8, 4, 17, 64), (3, 6, 197, 64), (2, 1, 1, 16), (1, 2, 80, 24),
+     (1, 2, 81, 40), (2, 2, 100, 72), (1, 5, 300, 40), (1, 2, 209, 64),
+     (2, 2, 81, 64), (1, 3, 128, 64), (5, 2, 193, 64), (40, 6, 197, 64)]
+
+
+@pytest.mark.parametrize("b,h,t,d", _MHA_SHAPES)
 def test_mha_kernel_matches_plain(gen, b, h, t, d):
     q, k, v = _qkv(gen, (b, h, t, d))
     before = attention.LAUNCHES
+    by_variant = dict(attention.VARIANT_LAUNCHES)
     out = attention.mha(q, k, v)
     assert attention.LAUNCHES == before + 1
+    which = "mma" if t <= attention.MMA_MAX_TOKENS else "general"
+    assert attention.variant(t, d) == which
+    by_variant[which] += 1
+    assert attention.VARIANT_LAUNCHES == by_variant
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     ref = attention.mha_plain(q, k, v)
     assert attention.LAUNCHES == before + 1
+    assert torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,h,t,d", [(4, 3, 197, 64), (2, 3, 17, 8),
+                                     (2, 2, 65, 128)])
+def test_mha_kernel_matches_plain_on_large_scores(gen, b, h, t, d):
+    """q and k scaled by 8: scaled scores of magnitude 8·√D·… with rows that
+    are nearly one-hot.  The tensor-core kernel folds the scale into a base-2
+    exponent, 2^((s − max)·scale·log2 e); here that exponent reaches into
+    the hundreds, where its rounding differs most from scaling first."""
+    q, k, v = _qkv(gen, (b, h, t, d))
+    q, k = q * 8, k * 8
+    assert attention.variant(t, d) == "mma"
+    out = attention.mha(q, k, v)
+    ref = attention.mha_plain(q, k, v)
+    assert torch.isfinite(out.float()).all()
+    assert torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_mha_kernel_ignores_what_lies_past_t(gen):
+    """Rows and key columns from T up to the padded tile are zero-filled in
+    shared memory, never read: NaNs behind each head's rows change
+    nothing."""
+    b, h, t, d = 2, 3, 21, 64
+    buf = torch.full((b, h, 3, t + 11, d), float("nan"), device="cuda",
+                     dtype=torch.bfloat16)
+    buf[:, :, :, :t] = torch.randn((b, h, 3, t, d), generator=gen,
+                                   device="cuda").bfloat16()
+    q, k, v = (buf[:, :, i, :t] for i in range(3))
+    out = attention.mha(q, k, v)
+    ref = attention.mha_plain(q, k, v)
+    assert torch.isfinite(out.float()).all()
     assert torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
 
