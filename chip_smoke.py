@@ -13,9 +13,9 @@ Phases, in order; any failure exits non-zero before the result line:
    |Δ| <= 1e-5, out-of-bounds exactly 0), with kernel, plain and
    ``grid_sample`` times and the bytes bound;
 4. blur+solve: the same on positive-semidefinite M fields (atol 2e-4,
-   rtol 1e-3; the measured |Δ| is 0), plus the tail window's four levels
+   rtol 1e-3, and equal bit for bit), plus the tail window's four levels
    ([12,5,H,W]; its 40² level takes the small tile) and ragged and small
-   planes ([3,5,37,53], [2,5,16,16]);
+   planes ([3,5,37,53], [2,5,16,16]); the kernel's ptxas lines;
 5. main path: 145 panning 1080p BGR frames and a 5 s speech-like waveform
    through ``pipeline.analyze_decoded`` on the card; the launch counters
    must rise by 48 each (4 windows × 4 levels × 3 rounds); the envelope
@@ -36,9 +36,12 @@ Phases, in order; any failure exits non-zero before the result line:
    dims 64, 8 and 128 on the tensor-core kernel and a shape past its
    largest instance on the general kernel, with the per-kernel counters;
 9. flow_iter: the fused Farnebäck round against its plain version at
-   [48,·,H,W] for the four levels and [12,·,320,320] (atol 5e-4, rtol
-   1e-3), timed beside the unfused sequence it replaces (warp kernel,
-   PyTorch update, blur+solve kernel);
+   [48,·,H,W] and at the tail window's [12,·,H,W] for the four levels
+   (the tail's 80² and 40² and the full window's 40² take the small
+   tile), on the smooth flow and the large pan (atol 5e-4, rtol 1e-3, the
+   contract with ``avd_tpu``, and equal bit for bit), timed beside the
+   unfused sequence it replaces (warp kernel, PyTorch update, blur+solve
+   kernel); the kernel's ptxas lines (registers, spills);
 10. detector path: the same 145 frames with ``AVD_DETECTOR=1``,
     ``AVD_ATTN_FUSED=1`` and the ``full`` ViT (seeded weights) through
     ``pipeline.analyze_decoded``: 145 finite probabilities, no
@@ -281,6 +284,8 @@ def phase_blur_solve(gen):
         err, ok = _close(out, ref, 2e-4, 1e-3)
         check(ok, f"blur+solve [{b},5,{h},{w}]: |Δ| {err} over atol 2e-4 "
                   "rtol 1e-3")
+        check(torch.equal(out, ref),
+              f"blur+solve [{b},5,{h},{w}]: not equal to the plain version")
         max_err = max(max_err, err)
         ms = time_ms(lambda: blur_solve.box_blur_solve(m))
         plain = time_ms(lambda: blur_solve.box_blur_solve_plain(m))
@@ -290,7 +295,28 @@ def phase_blur_solve(gen):
             rows.append((h, ms, plain, None, bnd, by))
         log(f"blur_solve [{b},5,{h},{w}]: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}); max |Δ| {err:.3g}")
+    for line in ptxas_lines("blur_solve", "blur_solve_kernel"):
+        log(f"ptxas: {line}")
     return rows, max_err
+
+
+def ptxas_lines(source, kernel):
+    """What ``-Xptxas -v`` said of each instance of ``kernel`` in this run's
+    build of ``csrc/<source>.cu``: registers, barriers, spills."""
+    import re
+    from avd_tpu_torch.ops.kernels import _build
+    out, name, spill = [], None, ""
+    for line in _build.BUILD_LOGS.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif name and kernel in name and "spill" in line:
+            spill = line.strip()
+        elif name and kernel in name and "Used" in line:
+            args = ",".join(re.findall(r"Li(\d+)E", name))
+            used = line.split(":", 1)[1].strip()
+            out.append(f"{kernel}<{args}>: {used}; {spill}")
+    return out or [f"{kernel}: not built in this run"]
 
 
 def _kernel_modules():
@@ -569,7 +595,7 @@ def phase_flow_iter(gen):
     from avd_tpu_torch.ops import flow as flow_ops
     from avd_tpu_torch.ops.kernels import blur_solve, flow_iter, warp
     rows, max_err = [], 0.0
-    for pairs, h in [(PAIRS, lv) for lv in LEVELS] + [(12, LEVELS[0])]:
+    for pairs, h in [(b, lv) for b in (PAIRS, 12) for lv in LEVELS]:
         R1, cases = _warp_cases(h, gen, pairs)
         R0 = torch.rand((pairs, 5, h, h), generator=gen, device=DEV)
         n_inb = 0
@@ -579,6 +605,8 @@ def phase_flow_iter(gen):
             err, ok = _close(out, ref, 5e-4, 1e-3)
             check(ok, f"flow_iter [{pairs},{h}] {name}: |Δ| {err} over "
                       "atol 5e-4 rtol 1e-3")
+            check(torch.equal(out, ref), f"flow_iter [{pairs},{h}] {name}: "
+                                         "not equal to the plain version")
             max_err = max(max_err, err)
             if name == "smooth":
                 n_inb = int(flow_ops._in_bounds(fl).sum())
@@ -603,6 +631,8 @@ def phase_flow_iter(gen):
         log(f"flow_iter [{pairs},5,{h},{h}]: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, unfused sequence {seq:.4f} ms, bound "
             f"{bnd:.4f} ms ({by}); max |Δ| {max_err:.3g}")
+    for line in ptxas_lines("flow_iter", "flow_iter_kernel"):
+        log(f"ptxas: {line}")
     return rows, max_err
 
 
@@ -902,6 +932,8 @@ def main():
     # blur+solve kernel, same unit
     kernels[2]["unfused_sequence_ms"] = ROUNDS * sum(
         r[6] for r in iter_rows[:len(LEVELS)])
+    kernels[2]["tail_per_level_ms"] = {str(r[0]): r[1]
+                                       for r in iter_rows[len(LEVELS):]}
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

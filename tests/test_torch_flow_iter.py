@@ -92,6 +92,80 @@ def test_update_from_warped_is_update_matrices_after_the_warp():
                        tflow._update_matrices(R0, R1, fl))
 
 
+def _tile_walk(R0, R1, fl, th, plant_nan=False):
+    """Plain-torch model of ``csrc/flow_iter.cu``'s indexing: per 32×th
+    output tile from (y0, x0), M at the staged positions (rows y0 − 7 …,
+    columns x0 − 8 … x0 + 39, clamped into the image); row sums as
+    ``blur.cuh`` forms them, from the 24-word register window at staged
+    column 8·g for the outputs 8·g + o, o < 8, as window words o + 1 …
+    o + 15; column sums over th + 14 rows, × 1/225, then the solve; each
+    sum left to right, as the kernel adds.  With ``plant_nan`` the staged
+    columns 0 and 47, which the kernel reads into the windows but never
+    writes, hold NaN."""
+    B, _, H, W = R0.shape
+    M = tflow.update_from_warped(R0, warp.warp_bilinear_plain(R1, fl), fl)
+    nty, ntx = -(-H // th), -(-W // 32)
+    rows = (torch.arange(nty)[:, None] * th - 7
+            + torch.arange(th + 14)).clamp(0, H - 1)
+    cols = (torch.arange(ntx)[:, None] * 32 - 8
+            + torch.arange(48)).clamp(0, W - 1)
+    # s[b, c, tile row, tile column, staged row, staged column]
+    s = M[:, :, rows[:, None, :, None], cols[None, :, None, :]].clone()
+    if plant_nan:
+        s[..., 0] = float("nan")
+        s[..., 47] = float("nan")
+    # window[..., g, k] = staged column 8·g + k, k < 24
+    win = s[..., torch.arange(4)[:, None] * 8 + torch.arange(24)]
+    hs = win[..., 1:9]
+    for j in range(2, 16):
+        hs = hs + win[..., j:j + 8]
+    hs = hs.flatten(-2)  # output column 8·g + o
+    vs = hs[..., 0:th, :]
+    for j in range(1, 15):
+        vs = vs + hs[..., j:j + th, :]
+    mean = (vs * (1.0 / 225)).permute(0, 1, 2, 4, 3, 5).reshape(
+        B, 5, nty * th, ntx * 32)
+    return blur_solve.solve_flow(mean)[..., :H, :W]
+
+
+def _random_round(seed, b, h, w, scale):
+    rng = np.random.default_rng(seed)
+    R0, R1 = (torch.from_numpy(rng.standard_normal((b, 5, h, w))
+                               .astype(np.float32)) for _ in range(2))
+    fl = torch.from_numpy(((rng.random((b, 2, h, w)) - 0.5) * scale)
+                          .astype(np.float32))
+    return R0, R1, fl
+
+
+@pytest.mark.parametrize("th", [80, 8])
+@pytest.mark.parametrize("shape,scale", [
+    ((1, 16, 16), 3.0), ((3, 37, 53), 0.0), ((2, 17, 300), 3.0),
+    ((1, 96, 33), 40.0), ((2, 100, 150), 3.0), ((3, 40, 40), 40.0),
+    ((1, 161, 81), 3.0),
+])
+def test_kernel_tile_walk_equals_the_plain_round(th, shape, scale):
+    """The kernel's tiles, halo origin, register windows and order of sums
+    reproduce the plain round bit for bit at ragged shapes, for the
+    kernel's two tile heights (80 and 8)."""
+    R0, R1, fl = _random_round(4, *shape, scale)
+    assert torch.equal(_tile_walk(R0, R1, fl, th),
+                       tflow_iter.solve_iteration_plain(R0, R1, fl))
+
+
+@pytest.mark.parametrize("th", [80, 8])
+def test_tile_walk_never_adds_staged_columns_0_and_47(th):
+    """NaN in the staged columns that the register windows read but that
+    the kernel never writes (0 and 47) never reaches the model's output:
+    the window indices o + 1 … o + 15 leave the windows' first and last
+    words out.  This checks the model, a copy of blur.cuh's indexing; the
+    kernel itself is checked on the card by
+    ``test_flow_iter_kernel_never_adds_the_unwritten_staged_columns``."""
+    R0, R1, fl = _random_round(5, 2, 45, 70, 3.0)
+    out = _tile_walk(R0, R1, fl, th, plant_nan=True)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, tflow_iter.solve_iteration_plain(R0, R1, fl))
+
+
 @pytest.mark.parametrize("h,w", [(15, 64), (64, 8)])
 def test_levels_under_16_px_raise(h, w):
     R = torch.zeros((1, 5, h, w))

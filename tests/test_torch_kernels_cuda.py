@@ -116,6 +116,49 @@ def test_flow_iter_kernel_matches_plain(gen, b, h, w, scale):
     assert torch.allclose(out, ref, atol=5e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("b,h,w", [(1, 16, 16), (3, 37, 53), (2, 17, 300),
+                                   (12, 320, 320), (12, 40, 40),
+                                   (48, 40, 40), (40, 100, 150)])
+@pytest.mark.parametrize("scale", [0.0, 3.0, 40.0])
+def test_flow_iter_kernel_keeps_the_plain_order_of_sums(gen, b, h, w, scale):
+    """The warp, update, sums and solve round as in the plain version
+    (blur.cuh's order, no contraction): the kernel equals it bit for bit on
+    both tiles ((12, 320, 320) and (40, 100, 150) take the 32×80 one, the
+    others the 32×8 one), on ragged edges and on a large pan that
+    leaves most pixels out of bounds."""
+    R0 = torch.randn((b, 5, h, w), generator=gen, device="cuda")
+    R1 = torch.randn((b, 5, h, w), generator=gen, device="cuda")
+    fl = (torch.rand((b, 2, h, w), generator=gen, device="cuda") - 0.5) \
+        * scale
+    assert torch.equal(flow_iter.solve_iteration(R0, R1, fl),
+                       flow_iter.solve_iteration_plain(R0, R1, fl))
+
+
+@pytest.mark.parametrize("b,h,w", [(3, 37, 53), (12, 320, 320)])
+def test_flow_iter_kernel_never_adds_the_unwritten_staged_columns(gen, b, h,
+                                                                  w):
+    """Staged columns 0 and 47 of blur.cuh's tile are read into the
+    register windows, but the fused round never writes them and must never
+    add them.  Shared memory keeps what earlier blocks left in it, so two
+    launches first fill it with NaN: blur+solve on an all-NaN M over many
+    blocks (its tile has the same 52-word pitch and stages every column),
+    then the fused round on all-NaN fields at this shape (its row sums
+    fill columns 0 … 31).  A kernel that added either column would give
+    NaN.  The first shape takes the 32×8 tile, the second the 32×80 one."""
+    R0 = torch.randn((b, 5, h, w), generator=gen, device="cuda")
+    R1 = torch.randn((b, 5, h, w), generator=gen, device="cuda")
+    fl = (torch.rand((b, 2, h, w), generator=gen, device="cuda") - 0.5) * 3
+    ref = flow_iter.solve_iteration_plain(R0, R1, fl)
+    nan = float("nan")
+    blur_solve.box_blur_solve(torch.full((48, 5, 320, 320), nan,
+                                         device="cuda"))
+    r_nan = torch.full_like(R0, nan)
+    flow_iter.solve_iteration(r_nan, r_nan, torch.zeros_like(fl))
+    out = flow_iter.solve_iteration(R0, R1, fl)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, ref)
+
+
 def test_flow_iter_wrapper_refuses_what_the_kernel_does_not_take(gen):
     R = torch.randn((1, 5, 32, 32), generator=gen, device="cuda")
     fl = torch.zeros((1, 2, 32, 32), device="cuda")
