@@ -7,17 +7,20 @@ video.py:83 — observable because fusion pads in place).  With
 ``AVD_DETECTOR=1`` the ViT detector scores every sampled frame
 (``models/scoring.py``): its timeline is attached as ``out["detector"]``
 and, with ``AVD_DETECTOR_BLEND``, blended into the heuristic timeline.
-The frequency forensics and the streaming detector accumulator belong to
-paths this package does not have yet.
+With ``AVD_FREQ_FORENSICS=1`` the block-DCT, blockiness and noise-residual
+statistics (``ops/forensic_freq.py``) of the native gray frames are
+attached as ``summary["freq"]``.  The streaming detector accumulator
+belongs to the file path, which this package does not have yet.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+from avd_tpu_torch import config as config_mod
 from avd_tpu_torch.ingest import video_reader
 from avd_tpu_torch.models import scoring
-from avd_tpu_torch.ops import video_features
+from avd_tpu_torch.ops import forensic_freq, video_features
 
 
 def _apply_detector(out: Dict[str, Any], det) -> None:
@@ -40,6 +43,12 @@ def analyze_batch(fb: video_reader.FrameBatch, device=None) -> Dict[str, Any]:
     """Analyze a pre-decoded frame batch on ``device`` (default CUDA)."""
     out = video_features.analyze_frames(
         fb.frames, fb.width, fb.height, fb.fps, fb.duration, device=device)
+
+    # optional frequency-domain forensics: an additive summary key
+    cfg = config_mod.get_config()
+    if cfg.freq_forensics and fb.frames.size:
+        gray = video_features._to_gray_host(fb.frames, cfg.native)
+        out["summary"]["freq"] = forensic_freq.summarize(gray, device=device)
 
     # optional neural detector: additive, so a detector failure must not
     # kill the heuristic analysis; it is reported under "detector_error"

@@ -45,6 +45,16 @@ def _env_float(name: str, default: float) -> float:
         return default
 
 
+def _env_choice(name: str, choices: tuple, default: str) -> str:
+    raw = os.getenv(name)
+    if raw is None:
+        return default
+    if raw not in choices:
+        _warn_bad(name, raw, default)
+        return default
+    return raw
+
+
 def _env_bool(name: str, default: bool) -> bool:
     return os.getenv(name, "1" if default else "0") == "1"
 
@@ -114,6 +124,24 @@ class Config:
     # JAX package's name for the same switch, so a deployment's setting
     # carries over; off by default as there.
     fused_flow_iter: bool = False
+    # The JAX package's switches of the heuristic video path, same names
+    # and defaults.  AVD_NATIVE=0 takes the numpy plain versions of host
+    # prep instead of the C++ host runtime (avd_tpu_torch/native).
+    native: bool = True
+    # AVD_FLOW_BF16: R0/R1 and M stored in bfloat16 between the flow
+    # kernels (every sum stays float32); ignored by the fused round.
+    flow_bf16: bool = False
+    # AVD_PREP: "host" (320² and 32² planes made on the host) or "device"
+    # (full-resolution gray shipped, resizes as matmuls on the card).
+    prep_mode: str = "host"
+    # AVD_CHANGE_GATE: skip the flow of pairs whose 320² planes changed by
+    # less than AVD_CHANGE_GATE_THR gray levels a pixel (opt-in, diverges
+    # from the reference on near-static pairs).
+    change_gate: bool = False
+    change_gate_thr: float = 0.5
+    # AVD_FREQ_FORENSICS: attach summary["freq"] (block-DCT, blockiness,
+    # noise-residual statistics).
+    freq_forensics: bool = False
 
     @staticmethod
     def from_env() -> "Config":
@@ -142,6 +170,12 @@ class Config:
             profile=_env_bool("AVD_PROFILE", False),
             max_inflight=_env_int("AVD_MAX_INFLIGHT", 0),
             fused_flow_iter=_env_bool("AVD_PALLAS_ITER", False),
+            native=_env_bool("AVD_NATIVE", True),
+            flow_bf16=_env_bool("AVD_FLOW_BF16", False),
+            prep_mode=_env_choice("AVD_PREP", ("host", "device"), "host"),
+            change_gate=_env_bool("AVD_CHANGE_GATE", False),
+            change_gate_thr=_env_float("AVD_CHANGE_GATE_THR", 0.5),
+            freq_forensics=_env_bool("AVD_FREQ_FORENSICS", False),
         )
 
 

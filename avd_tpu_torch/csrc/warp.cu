@@ -18,7 +18,14 @@
 // flow) the corner reads are coalesced.  Out-of-bounds threads only write
 // zeros.  Compiled with --fmad=false so the weights and the sum round as
 // in the plain PyTorch version.
+//
+// Source type: float32, or bfloat16 under AVD_FLOW_BF16 (the TPU kernel
+// takes both, warp.py:114-122).  The flow and the output stay float32; a
+// bf16 tap is widened on load, so the arithmetic is the float32 kernel's
+// on the widened field.  bf16 moves 38 B/px instead of 48.  The float32
+// instance is the kernel as it was (load() is the identity there).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -26,7 +33,13 @@ namespace {
 
 constexpr int kC = 5;  // polynomial coefficient planes
 
-__global__ void warp_bilinear_kernel(const float* __restrict__ src,
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <typename T>
+__global__ void warp_bilinear_kernel(const T* __restrict__ src,
                                      const float* __restrict__ flow,
                                      float* __restrict__ out,
                                      int64_t total, int H, int W) {
@@ -60,13 +73,27 @@ __global__ void warp_bilinear_kernel(const float* __restrict__ src,
   const float w01 = (1.f - bb) * a;
   const float w10 = bb * (1.f - a);
   const float w11 = bb * a;
-  const float* s = src + b * kC * plane +
-                   static_cast<int64_t>(y1) * W + static_cast<int64_t>(x1);
+  const T* s = src + b * kC * plane +
+               static_cast<int64_t>(y1) * W + static_cast<int64_t>(x1);
 #pragma unroll
   for (int c = 0; c < kC; ++c) {
-    const float* sc = s + c * plane;
-    o[c * plane] = w00 * sc[0] + w01 * sc[1] + w10 * sc[W] + w11 * sc[W + 1];
+    const T* sc = s + c * plane;
+    o[c * plane] = w00 * load(sc) + w01 * load(sc + 1) + w10 * load(sc + W) +
+                   w11 * load(sc + W + 1);
   }
+}
+
+template <typename T>
+int launch(const T* src, const float* flow, float* out, int B, int H, int W,
+           void* stream) {
+  const int64_t total = static_cast<int64_t>(B) * H * W;
+  if (total == 0) return 0;
+  constexpr int kThreads = 256;
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  warp_bilinear_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      src, flow, out, total, H, W);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -77,12 +104,12 @@ __global__ void warp_bilinear_kernel(const float* __restrict__ src,
 extern "C" int avd_warp_bilinear(const float* src, const float* flow,
                                  float* out, int B, int H, int W,
                                  void* stream) {
-  const int64_t total = static_cast<int64_t>(B) * H * W;
-  if (total == 0) return 0;
-  constexpr int kThreads = 256;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  warp_bilinear_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      src, flow, out, total, H, W);
-  return static_cast<int>(cudaGetLastError());
+  return launch(src, flow, out, B, H, W, stream);
+}
+
+// The same with a bf16 src [B,5,H,W]; flow and out as above.
+extern "C" int avd_warp_bilinear_bf16(const __nv_bfloat16* src,
+                                      const float* flow, float* out, int B,
+                                      int H, int W, void* stream) {
+  return launch(src, flow, out, B, H, W, stream);
 }

@@ -1,0 +1,97 @@
+"""Build the port's C++ host runtime with g++ and load it with ctypes.
+
+``src/avd_native.cc`` compiles, at first use, into
+``build/avd_tpu_torch_host/libavd_native-<digest>.so`` under the checkout.
+The digest covers the source, the flags and the host CPU's feature flags
+(``-march=native`` makes a library for the machine that built it, so a
+build directory copied to another machine rebuilds instead of loading
+instructions that machine may lack).  g++ writes to a per-process temp
+file that ``os.replace`` moves into place, under an exclusive file lock:
+concurrent processes (test workers) build once, and a cut build never
+leaves a partial library.  A failed compile raises with g++'s output.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(_PKG, "native", "src", "avd_native.cc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
+                         "avd_tpu_torch_host")
+# the JAX package's flags (avd_tpu/native/__init__.py)
+FLAGS = ("-O3", "-march=native", "-funroll-loops", "-fPIC", "-std=c++17",
+         "-pthread", "-shared")
+
+BUILD_INFO: dict = {}  # what the last compile in this process took and said
+
+
+def gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the port's host runtime "
+                           "(avd_tpu_torch/native) is built with it at "
+                           "first use; set AVD_NATIVE=0 to run the numpy "
+                           "plain versions instead")
+    return found
+
+
+def _cpu_flags() -> bytes:
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith(b"flags"):
+                    return line
+    except OSError:
+        pass
+    return b""
+
+
+def lib_path(src: str = SRC, build_dir: str = BUILD_DIR) -> str:
+    digest = hashlib.sha256(" ".join(FLAGS).encode() + b"\0" + _cpu_flags())
+    with open(src, "rb") as f:
+        digest.update(f.read())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(build_dir, f"lib{stem}-{digest.hexdigest()[:12]}.so")
+
+
+def build(src: str = SRC, build_dir: str = BUILD_DIR) -> str:
+    """The library built from ``src`` (compiled now unless it exists)."""
+    out = lib_path(src, build_dir)
+    if os.path.exists(out):
+        return out
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if os.path.exists(out):  # another process built it meanwhile
+            return out
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [gxx(), *FLAGS, "-o", tmp, src]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"g++ failed for {os.path.basename(src)} (exit "
+                    f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        BUILD_INFO.update(seconds=time.perf_counter() - t0, path=out,
+                          command=" ".join(cmd))
+    return out
+
+
+def version() -> str:
+    """The first line of ``g++ --version``."""
+    r = subprocess.run([gxx(), "--version"], capture_output=True, text=True,
+                       timeout=60)
+    return r.stdout.splitlines()[0] if r.stdout else r.stderr.strip()

@@ -227,9 +227,12 @@ def _update_matrices(R0: torch.Tensor, R1: torch.Tensor,
 def update_from_warped(R0: torch.Tensor, R1w: torch.Tensor,
                        flow: torch.Tensor) -> torch.Tensor:
     """``_update_matrices`` after the warp: R1w is R1 warped by ``flow``
-    (0 outside the in-bounds rule)."""
+    (0 outside the in-bounds rule).  bf16 fields (``flow_bf16``) are
+    widened here, as in ``avd_tpu/ops/flow.py``: all arithmetic is f32."""
     H, W = R0.shape[2:4]
     inb = _in_bounds(flow)
+    R0 = R0.float()
+    R1w = R1w.float()
 
     # averaged quadratic coefficients; cross term carries an extra 1/2
     # because the stored channel is the full cross coefficient.
@@ -278,13 +281,17 @@ def farneback_flow(prev: torch.Tensor, cur: torch.Tensor,
                    pyr_scale: float = 0.5, levels: int = 3,
                    winsize: int = 15, iterations: int = 3,
                    poly_n: int = 5, poly_sigma: float = 1.2,
-                   fused_iter: bool = False) -> torch.Tensor:
+                   fused_iter: bool = False,
+                   flow_bf16: bool = False) -> torch.Tensor:
     """Batched Farnebäck flow: two [B, H, W] f32 stacks → [B, H, W, 2].
 
     Semantics match cv2.calcOpticalFlowFarneback with flags=0 (box-filter
     aggregation, no initial flow).  With ``fused_iter`` each solver round
     is one fused warp+update+blur+solve call (``AVD_PALLAS_ITER=1`` in the
-    JAX package) at every level; levels under 16 px raise.
+    JAX package) at every level; levels under 16 px raise.  With
+    ``flow_bf16`` (``AVD_FLOW_BF16=1``) R0 and R1 are stored in bfloat16
+    before the rounds and M after each update; every sum stays f32.  The
+    fused round ignores it, as the JAX package's does.
     """
     B, H, W = prev.shape
     dev = prev.device
@@ -309,11 +316,17 @@ def farneback_flow(prev: torch.Tensor, cur: torch.Tensor,
 
         # first solve from the incoming flow's matrices, then
         # (iterations-1) refinement rounds
+        if flow_bf16 and not fused_iter:
+            R0 = R0.to(torch.bfloat16)
+            R1 = R1.to(torch.bfloat16)
         for _ in range(iterations):
             if fused_iter:
                 flow = flow_iter_k.solve_iteration(R0, R1, flow, winsize)
-            else:
-                flow = _blur_solve(_update_matrices(R0, R1, flow), winsize)
+                continue
+            M = _update_matrices(R0, R1, flow)
+            if flow_bf16:
+                M = M.to(torch.bfloat16)
+            flow = _blur_solve(M, winsize)
     # external contract stays [B, H, W, 2]
     return flow.permute(0, 2, 3, 1)
 

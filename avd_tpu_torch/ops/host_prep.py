@@ -1,9 +1,12 @@
-"""Host preprocessing of BGR frames: integer-exact, numpy only.
+"""Host preprocessing of BGR frames: integer-exact.
 
-The counterpart of ``avd_tpu.native.prep320_bgr`` plus
-``avd_tpu/ops/video_features._host_prep``, as ONE numpy implementation of
-the integer semantics of ``avd_tpu/native/src/avd_native.cc`` (no cv2, no
-fallback chain).  Per frame it produces:
+The counterpart of ``avd_tpu/ops/video_features._host_prep``.
+``host_prep`` runs the port's C++ host runtime (``avd_tpu_torch/native``):
+one fused ``prep320_bgr`` sweep when both sides exceed 320, else native
+gray and ``lap_area32`` plus the numpy ``lin320`` below (the C++ sweep
+declines upscale).  ``host_prep_plain`` is the same function in numpy
+alone, the plain version the tests hold the library against; it runs on
+the main path only under ``AVD_NATIVE=0``.  Per frame both produce:
 
 * the full-resolution Laplacian variance (cv2.Laplacian(CV_64F).var():
   ksize-1 stencil, reflect-101 borders, exact int64 sums);
@@ -280,13 +283,41 @@ def prep_frame(frame_bgr: np.ndarray):
     return lin320(gray), area32(gray), laplacian_var(gray)
 
 
-def host_prep(frames_bgr: np.ndarray, threads: int | None = None):
-    """[N, H, W, 3] BGR uint8 → (flow_input [N,320,320] u8,
-    hash_input [N,32,32] u8, tex [N] f64); H, W >= 32."""
-    n, h, w = frames_bgr.shape[:3]
+def _check_size(frames_bgr: np.ndarray) -> None:
+    h, w = frames_bgr.shape[1:3]
     if h < HASH_SIZE or w < HASH_SIZE:
         raise ValueError(f"host prep needs frames of at least "
                          f"{HASH_SIZE}×{HASH_SIZE}, got {h}×{w}")
+
+
+def host_prep(frames_bgr: np.ndarray, threads: int | None = None,
+              native: bool = True):
+    """[N, H, W, 3] BGR uint8 → (flow_input [N,320,320] u8,
+    hash_input [N,32,32] u8, tex [N] f64); H, W >= 32.  ``native=False``
+    (``AVD_NATIVE=0``) runs ``host_prep_plain``."""
+    if not native:
+        return host_prep_plain(frames_bgr, threads)
+    from avd_tpu_torch import native as native_mod
+    _check_size(frames_bgr)
+    fused = native_mod.prep320_bgr(frames_bgr, threads)
+    if fused is not None:
+        tex, s32, s320 = fused
+        return s320, s32, tex
+    gray = native_mod.bgr_to_gray(frames_bgr, threads)
+    tex, s32 = native_mod.lap_area32(gray, threads)
+    s320 = np.empty((gray.shape[0], FLOW_SIZE, FLOW_SIZE), np.uint8)
+
+    def work(i):
+        s320[i] = lin320(gray[i])
+
+    _map_frames(work, gray.shape[0], threads)
+    return s320, s32, tex
+
+
+def host_prep_plain(frames_bgr: np.ndarray, threads: int | None = None):
+    """``host_prep`` in numpy alone, frame by frame in threads."""
+    _check_size(frames_bgr)
+    n = frames_bgr.shape[0]
     s320 = np.empty((n, FLOW_SIZE, FLOW_SIZE), np.uint8)
     s32 = np.empty((n, HASH_SIZE, HASH_SIZE), np.uint8)
     tex = np.empty(n, np.float64)

@@ -111,12 +111,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_cuda(x, name: str) -> None:
-    """Wrapper-side input contract shared by the kernels."""
+def check_cuda(x, name: str, dtypes=None) -> None:
+    """Wrapper-side input contract shared by the kernels: on a CUDA
+    device, contiguous, of one of ``dtypes`` (default float32 alone)."""
     import torch
+    dtypes = dtypes or (torch.float32,)
     if x.device.type != "cuda":
         raise ValueError(f"{name} must lie on a CUDA device, not {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, not {x.dtype}")
+    if x.dtype not in dtypes:
+        want = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name} must be {want}, not {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

@@ -5,7 +5,9 @@ replicate-edge box mean of M = (g11, g12, g22, h1, h2) [B, 5, H, W], then
 idet = 1/(g11·g22 − g12² + 1e-3) and the per-pixel solve → [B, 2, H, W].
 The kernel is ``csrc/blur_solve.cu``; ``box_blur_solve_plain`` is the same
 function in plain PyTorch (replicate pad, separable shifted sums in the
-kernel's order, solve) with no convolution library call.
+kernel's order, solve) with no convolution library call.  ``M`` may be
+float32 or, under ``AVD_FLOW_BF16``, bfloat16 (as the TPU kernel takes
+it): it is widened to float32 before the sums, and the flow is float32.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch.nn.functional as F
 from avd_tpu_torch.ops.kernels import _build
 
 LAUNCHES = 0  # kernel launches; raised only where the kernel is launched
+# the same launches by the type of M
+DTYPE_LAUNCHES = {"float32": 0, "bfloat16": 0}
 
 _C = 5
 WINSIZE = 15  # the window the kernel is compiled for (Farnebäck default)
@@ -52,36 +56,38 @@ def box_blur_solve_plain(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
     return solve_flow(box_blur_mean(m, winsize))
 
 
-_fn = None
+_SYMBOLS = {torch.float32: "avd_blur_solve",
+            torch.bfloat16: "avd_blur_solve_bf16"}
+_fns: dict = {}
 
 
-def _lib():
-    global _fn
-    if _fn is None:
-        fn = _build.load("blur_solve").avd_blur_solve
+def _lib(dtype: torch.dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = getattr(_build.load("blur_solve"), _SYMBOLS[dtype])
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return fn
 
 
 def box_blur_solve(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
-    """[B, 5, H, W] f32 M field → [B, 2, H, W] f32 flow planes.
+    """[B, 5, H, W] f32 or bf16 M field → [B, 2, H, W] f32 flow planes.
 
     A CPU tensor takes ``box_blur_solve_plain``; a CUDA tensor launches the
     kernel or raises."""
     global LAUNCHES
     if m.device.type == "cpu":
         return box_blur_solve_plain(m, winsize)
-    _build.check_cuda(m, "M")
+    _build.check_cuda(m, "M", tuple(_SYMBOLS))
     B, C, H, W = m.shape
     if C != _C:
         raise ValueError(f"M shape {tuple(m.shape)}; want [B,5,H,W]")
     if winsize != WINSIZE:
         raise ValueError(f"the blur+solve kernel is built for winsize "
                          f"{WINSIZE}, got {winsize}")
-    fn = _lib()
+    fn = _lib(m.dtype)
     out = torch.empty((B, 2, H, W), dtype=torch.float32, device=m.device)
     with torch.cuda.device(m.device):
         err = fn(m.data_ptr(), out.data_ptr(), B, H, W,
@@ -89,4 +95,5 @@ def box_blur_solve(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"blur+solve kernel launch failed: cudaError {err}")
     LAUNCHES += 1
+    DTYPE_LAUNCHES[str(m.dtype).replace("torch.", "")] += 1
     return out

@@ -4,7 +4,9 @@ Port of ``avd_tpu/ops/pallas/warp.py:warp_bilinear``: sample src
 [B, 5, H, W] at (y + dy, x + dx) for the flow planes [B, 2, H, W]; pixels
 failing the OpenCV in-bounds rule (0 <= floor(coord) <= size-2) are 0.
 The kernel is ``csrc/warp.cu``; ``warp_bilinear_plain`` is the same function
-in plain PyTorch (a corner gather plus masks).
+in plain PyTorch (a corner gather plus masks).  ``src`` may be float32 or,
+under ``AVD_FLOW_BF16``, bfloat16 (as the TPU kernel takes it): each tap is
+widened to float32 on load and the output is float32 either way.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import torch
 from avd_tpu_torch.ops.kernels import _build
 
 LAUNCHES = 0  # kernel launches; raised only where the kernel is launched
+# the same launches by the type of src
+DTYPE_LAUNCHES = {"float32": 0, "bfloat16": 0}
 
 _C = 5
 
@@ -49,30 +53,33 @@ def warp_bilinear_plain(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return torch.where(inb[:, None], out, 0.0)
 
 
-_fn = None
+_SYMBOLS = {torch.float32: "avd_warp_bilinear",
+            torch.bfloat16: "avd_warp_bilinear_bf16"}
+_fns: dict = {}
 
 
-def _lib():
-    global _fn
-    if _fn is None:
-        fn = _build.load("warp").avd_warp_bilinear
+def _lib(dtype: torch.dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = getattr(_build.load("warp"), _SYMBOLS[dtype])
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return fn
 
 
 def warp_bilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """[B, 5, H, W] f32 src, [B, 2, H, W] f32 flow → [B, 5, H, W] f32.
+    """[B, 5, H, W] f32 or bf16 src, [B, 2, H, W] f32 flow → [B, 5, H, W]
+    f32.
 
     A CPU tensor takes ``warp_bilinear_plain``; a CUDA tensor launches the
     kernel or raises."""
     global LAUNCHES
     if src.device.type == "cpu" and flow.device.type == "cpu":
         return warp_bilinear_plain(src, flow)
-    _build.check_cuda(src, "src")
+    _build.check_cuda(src, "src", tuple(_SYMBOLS))
     _build.check_cuda(flow, "flow")
     B, C, H, W = src.shape
     if C != _C or tuple(flow.shape) != (B, 2, H, W):
@@ -82,12 +89,13 @@ def warp_bilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         raise ValueError("src and flow lie on different devices")
     if H < 2 or W < 2:
         raise ValueError(f"warp needs H, W >= 2, got {H}x{W}")
-    fn = _lib()
-    out = torch.empty_like(src)
+    fn = _lib(src.dtype)
+    out = torch.empty(src.shape, dtype=torch.float32, device=src.device)
     with torch.cuda.device(src.device):
         err = fn(src.data_ptr(), flow.data_ptr(), out.data_ptr(), B, H, W,
                  torch.cuda.current_stream(src.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"warp kernel launch failed: cudaError {err}")
     LAUNCHES += 1
+    DTYPE_LAUNCHES[str(src.dtype).replace("torch.", "")] += 1
     return out

@@ -1,23 +1,35 @@
-"""Batched per-frame video features on the GPU (host-prep mode).
+"""Batched per-frame video features on the GPU.
 
-Port of ``avd_tpu/ops/video_features.py`` in its default ``AVD_PREP=host``
-mode.  Per window of sampled frames the pipeline produces only per-frame
-scalars:
+Port of ``avd_tpu/ops/video_features.py``.  Per window of sampled frames
+the pipeline produces only per-frame scalars:
 
-    texture[k]     Laplacian variance at full resolution (host prep)
+    texture[k]     Laplacian variance at full resolution
     hamming[k]     Hamming distance between consecutive 32×32 avg-hashes
     flow_mean[k]   mean |Farnebäck flow| on 320×320 gray, pair (k, k+1)
     flow_var[k]    population variance of |flow| per pair
 
-The host makes the 320² flow planes, the 32² hash planes and the texture
-(``ops/host_prep.py``); the device runs hashing and the batched Farnebäck
-flow over every pair of a window (``_prep_body``).  Clips longer than the
-chunk stream through windows with a one-frame lead-in; tails round up to
-quarter-chunk buckets.  Each window ships as ONE u8 vector through pinned
-host memory (``non_blocking``), its results stay on the device, and all
-windows' results come back in one device→host fetch at the end, so host
-prep of window k+1 overlaps the device work of window k.  Aggregation runs
-on the host in float64 (``oracle/video_ref.summarize``).
+Two preprocessing placements (``AVD_PREP``, ``config.prep_mode``):
+
+``host`` (default)
+    The host makes the 320² flow planes, the 32² hash planes and the
+    texture (``ops/host_prep.py``: the C++ host runtime unless
+    ``AVD_NATIVE=0``); the device runs hashing and the batched Farnebäck
+    flow over every pair of a window (``_prep_body``).  Each window ships
+    as ONE u8 vector through pinned host memory (``non_blocking``).
+``device``
+    Full-resolution gray (native on the host) ships to the device; the
+    resizes are fp32 matmuls and the Laplacian a stencil there
+    (``_feature_body``).  About 2 MB a frame at 1080p.
+
+Clips longer than the chunk stream through windows with a one-frame
+lead-in; tails round up to quarter-chunk buckets.  Window results stay on
+the device and all of them come back in one device→host fetch at the end,
+so host work on window k+1 overlaps the device work of window k.
+
+``AVD_CHANGE_GATE=1`` (``compute_features`` only) hashes on the host and
+runs the flow only for the pairs whose 320² planes changed
+(``_compute_features_gated``).  Aggregation runs on the host in float64
+(``oracle/video_ref.summarize``).
 """
 
 from __future__ import annotations
@@ -29,8 +41,9 @@ import torch
 
 from avd_tpu_torch import config as config_mod
 from avd_tpu_torch import device as device_mod
+from avd_tpu_torch import native
 from avd_tpu_torch.oracle import video_ref
-from avd_tpu_torch.ops import flow, hashing
+from avd_tpu_torch.ops import flow, hashing, laplacian, resize
 from avd_tpu_torch.ops import host_prep as host_prep_mod
 
 # Frames per device chunk (excluding the 1-frame lead-in).
@@ -55,35 +68,94 @@ def _bucket_len(n_window: int, chunk: int) -> int:
     return chunk + 1
 
 
-def _prep_body(flow_u8: torch.Tensor, hash_u8: torch.Tensor,
-               fused_iter: bool = False):
-    """Pair features from pre-resized windows ([N, 320, 320] and
-    [N, 32, 32] uint8) → (ham [N-1] i32, fmean [N-1], fvar [N-1]).
-    ``fused_iter`` runs each solver round as one fused kernel call."""
+def _flow_stats(prev: torch.Tensor, cur: torch.Tensor, cfg):
+    """Farnebäck flow over [B, 320, 320] f32 pairs → (fmean, fvar)."""
+    fl = flow.farneback_flow(prev, cur, fused_iter=cfg.fused_flow_iter,
+                             flow_bf16=cfg.flow_bf16)
+    return flow.flow_magnitude_stats(fl)
+
+
+def _prep_body(flow_u8: torch.Tensor, hash_u8: torch.Tensor, cfg):
+    """Host-prep variant: pair features from pre-resized windows
+    ([N, 320, 320] and [N, 32, 32] uint8) → (ham [N-1] i32, fmean [N-1],
+    fvar [N-1])."""
     bits = hashing.average_hash_bits(hash_u8.float())
     ham = hashing.consecutive_hamming(bits)
     fs = flow_u8.float()
-    fl = flow.farneback_flow(fs[:-1], fs[1:], fused_iter=fused_iter)
-    fmean, fvar = flow.flow_magnitude_stats(fl)
+    fmean, fvar = _flow_stats(fs[:-1], fs[1:], cfg)
     return ham, fmean, fvar
 
 
-def run_prep_window(w320: np.ndarray, w32: np.ndarray,
-                    device: torch.device,
-                    fused_iter: bool = False) -> torch.Tensor:
-    """Enqueue one window: one u8 host→device copy (pinned, non-blocking
-    on CUDA), then the pair features.  Returns ham ‖ fmean ‖ fvar as one
-    float32 device vector; nothing is fetched."""
-    n = w320.shape[0]
-    packed = torch.from_numpy(np.concatenate([w320.reshape(-1),
-                                              w32.reshape(-1)]))
+def _feature_body(gray_u8: torch.Tensor, cfg):
+    """Device-prep variant: the full feature set of a [N, H, W] uint8 gray
+    window → (tex [N], ham [N-1] i32, fmean [N-1], fvar [N-1]).  The
+    resizes are fp32 products with ``ops/resize.py``'s matrices (TF32 is
+    off: ``device.resolve``)."""
+    _, h, w = gray_u8.shape
+    dev = gray_u8.device
+    area_r = resize.device_matrix(resize.area_matrix, (h, _HASH_SIZE), dev)
+    area_c = resize.device_matrix(resize.area_matrix, (w, _HASH_SIZE), dev)
+    lin_r = resize.device_matrix(resize.linear_matrix,
+                                 (h, _FLOW_SIZE, True), dev)
+    lin_c = resize.device_matrix(resize.linear_matrix,
+                                 (w, _FLOW_SIZE, True), dev)
+    gray = gray_u8.float()
+    tex = laplacian.texture_variance(gray)
+    small = torch.round(resize.resize_matmul(gray, area_r, area_c))
+    ham = hashing.consecutive_hamming(hashing.average_hash_bits(small))
+    fsmall = torch.clamp(torch.round(resize.resize_matmul(gray, lin_r,
+                                                          lin_c)), 0.0, 255.0)
+    fmean, fvar = _flow_stats(fsmall[:-1], fsmall[1:], cfg)
+    return tex, ham, fmean, fvar
+
+
+def _put(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host→device copy of a u8 array (pinned, non-blocking on CUDA)."""
+    t = torch.from_numpy(np.ascontiguousarray(host))
     if device.type == "cuda":
-        packed = packed.pin_memory().to(device, non_blocking=True)
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def run_prep_window(w320: np.ndarray, w32: np.ndarray,
+                    device: torch.device, cfg=None) -> torch.Tensor:
+    """Enqueue one host-prep window: one u8 host→device copy, then the
+    pair features.  Returns ham ‖ fmean ‖ fvar as one float32 device
+    vector; nothing is fetched."""
+    cfg = cfg or config_mod.get_config()
+    n = w320.shape[0]
+    packed = _put(np.concatenate([w320.reshape(-1), w32.reshape(-1)]),
+                  device)
     n_flow = n * _FLOW_SIZE * _FLOW_SIZE
     f = packed[:n_flow].view(n, _FLOW_SIZE, _FLOW_SIZE)
     h8 = packed[n_flow:].view(n, _HASH_SIZE, _HASH_SIZE)
-    ham, fmean, fvar = _prep_body(f, h8, fused_iter)
+    ham, fmean, fvar = _prep_body(f, h8, cfg)
     return torch.cat([ham.float(), fmean, fvar])
+
+
+def run_window(window_gray_u8: np.ndarray, device: torch.device, cfg=None):
+    """Enqueue one device-prep window ([N, H, W] uint8 gray): one u8 copy,
+    then ``_feature_body``.  Returns (tex, ham, fmean, fvar) on the
+    device; nothing is fetched."""
+    cfg = cfg or config_mod.get_config()
+    return _feature_body(_put(window_gray_u8, device), cfg)
+
+
+def _chunk_size(h: int, w: int) -> int:
+    """Device-prep window length: shrunk for frames above 1080p to bound
+    device memory."""
+    if h * w > 1920 * 1080:
+        return max(8, _DEFAULT_CHUNK // 4)
+    return _DEFAULT_CHUNK
+
+
+def _to_gray_host(frames: np.ndarray, use_native: bool = True) -> np.ndarray:
+    """[N, H, W, 3] BGR uint8 → [N, H, W] uint8, cv2 fixed point: the host
+    runtime's threaded converter, or the numpy plain version under
+    ``AVD_NATIVE=0``."""
+    if use_native:
+        return native.bgr_to_gray(frames)
+    return host_prep_mod.to_gray(frames)
 
 
 def _assemble(feats: Dict, tex_all, ham_all, fmean_all, fvar_all) -> Dict:
@@ -102,13 +174,17 @@ def _assemble(feats: Dict, tex_all, ham_all, fmean_all, fvar_all) -> Dict:
     return feats
 
 
-def _window_slices(start: int, valid: int, ham, fmean, fvar, sinks) -> None:
+def _window_slices(start: int, valid: int, tex, ham, fmean, fvar,
+                   sinks) -> None:
     """Distribute one window's outputs into the global feature lists.
 
     Window index 0 is the lead-in; pair i is (window[i], window[i+1]).
     For the first window the lead-in duplicates frame 0, so pair 0 is the
-    (f0, f0) artifact and is dropped."""
-    ham_all, fmean_all, fvar_all = sinks
+    (f0, f0) artifact and is dropped.  ``tex`` (device prep only) has one
+    entry per window frame."""
+    tex_all, ham_all, fmean_all, fvar_all = sinks
+    if tex is not None:
+        tex_all.extend(np.asarray(tex)[1:1 + valid].tolist())
     lo = 1 if start == 0 else 0
     ham_all.extend(np.asarray(ham)[lo:valid].tolist())
     fmean_all.extend(np.asarray(fmean)[lo:valid].tolist())
@@ -122,20 +198,114 @@ def _pad_window(window: np.ndarray, target: int) -> np.ndarray:
     return window
 
 
+def _fetch_windows(pend, with_tex: bool, sinks) -> None:
+    """The one device→host fetch: every window's result vector at once,
+    then split into the feature lists.  ``pend`` holds (vector, valid,
+    is_first, window length); a vector is [tex ‖] ham ‖ fmean ‖ fvar."""
+    fetched = torch.cat([p[0] for p in pend]).cpu().numpy()
+    off = 0
+    for _, valid, is_first, target in pend:
+        k = target - 1
+        tex = None
+        if with_tex:
+            tex = fetched[off:off + target]
+            off += target
+        vec = fetched[off:off + 3 * k]
+        off += 3 * k
+        _window_slices(0 if is_first else 1, valid, tex, vec[:k],
+                       vec[k:2 * k], vec[2 * k:], sinks)
+
+
+def _device_window_vector(outs) -> torch.Tensor:
+    tex, ham, fmean, fvar = outs
+    return torch.cat([tex, ham.float(), fmean, fvar])
+
+
+# ---------------------------------------------------------------------------
+# change gate (AVD_CHANGE_GATE)
+# ---------------------------------------------------------------------------
+
+# the window path's flow batch shapes, so a gated clip reuses their plans
+_PAIR_BUCKETS = (12, 24, 36, 48)
+
+
+def flow_pairs(prev320: np.ndarray, cur320: np.ndarray, device, cfg=None):
+    """Farnebäck over b explicit (prev, cur) [b, 320, 320] uint8 pairs:
+    one packed u8 copy, the flow and its magnitude stats.  Returns
+    fmean ‖ fvar as one [2b] float32 device vector; nothing is fetched.
+    The counterpart of ``_compiled_flow_pairs``."""
+    cfg = cfg or config_mod.get_config()
+    b = prev320.shape[0]
+    packed = _put(np.concatenate([prev320.reshape(-1), cur320.reshape(-1)]),
+                  device)
+    pairs = packed.view(2, b, _FLOW_SIZE, _FLOW_SIZE).float()
+    fmean, fvar = _flow_stats(pairs[0], pairs[1], cfg)
+    return torch.cat([fmean, fvar])
+
+
+def _compute_features_gated(feats: Dict, s320: np.ndarray, s32: np.ndarray,
+                            tex, device, cfg) -> Dict:
+    """Change-gated features: hash and duplicates on the host (float64
+    mean and >= as the reference and ``hashing.py``), the per-pair mean
+    |Δ| gate on the host, Farnebäck only for the pairs that moved, in
+    ``_PAIR_BUCKETS`` groups padded with the group's first pair."""
+    n = s320.shape[0]
+    m32 = s32.reshape(n, -1).astype(np.float64).mean(axis=1)
+    bits = s32.astype(np.float64) >= m32[:, None, None]
+    ham = (bits[1:] ^ bits[:-1]).sum(axis=(1, 2)) if n > 1 else \
+        np.zeros((0,), np.int64)
+
+    if n > 1:
+        deltas = np.abs(s320[1:].astype(np.int16)
+                        - s320[:-1].astype(np.int16)).mean(axis=(1, 2))
+        dynamic = np.nonzero(deltas >= cfg.change_gate_thr)[0]
+    else:
+        dynamic = np.zeros((0,), np.int64)
+
+    fmean = np.zeros(max(0, n - 1), np.float64)
+    fvar = np.zeros(max(0, n - 1), np.float64)
+    groups = []  # (pair indices, bucket, device vector)
+    start = 0
+    while start < dynamic.size:
+        take = dynamic[start:start + _PAIR_BUCKETS[-1]]
+        b = next(x for x in _PAIR_BUCKETS if x >= take.size)
+        idx = np.concatenate([take, np.repeat(take[:1], b - take.size)])
+        groups.append((take, b, flow_pairs(s320[idx], s320[idx + 1], device,
+                                           cfg)))
+        start += take.size
+    if groups:  # one device→host fetch for every group
+        fetched = torch.cat([g[2] for g in groups]).cpu().numpy()
+        off = 0
+        for take, b, _ in groups:
+            fmean[take] = fetched[off:off + take.size]
+            fvar[take] = fetched[off + b:off + b + take.size]
+            off += 2 * b
+
+    feats["skipped_pairs"] = int((n - 1) - dynamic.size) if n > 1 else 0
+    return _assemble(feats, list(tex), ham.tolist(), fmean.tolist(),
+                     fvar.tolist())
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
 def compute_features_streaming(chunk_iter, device=None) -> Dict:
     """Consume an iterator of [k, H, W, 3] BGR chunks.
 
-    Windows are enqueued on the device as they fill, so host prep of the
+    Windows are enqueued on the device as they fill, so host work on the
     next chunk overlaps device compute.  Results are identical to
-    ``compute_features`` on the concatenated frames: the windows do not
-    depend on how the frames were chunked.
+    ``compute_features`` on the concatenated frames in host-prep mode (the
+    windows do not depend on how the frames were chunked); in device-prep
+    mode the tail window takes a bucket here and the full chunk there.
     """
     dev = device_mod.resolve(device)
-    fused_iter = config_mod.get_config().fused_flow_iter  # AVD_PALLAS_ITER
-    chunk = _DEFAULT_CHUNK
+    cfg = config_mod.get_config()
+    host_mode = cfg.prep_mode == "host"
+    chunk = _DEFAULT_CHUNK if host_mode else None
     pend: list = []      # (device result vector, valid, is_first, target)
     tex_parts: list = []
-    held = None          # (s320, s32) not yet dispatched
+    held = None          # host planes or gray not yet dispatched
     prev_last = None     # lead-in frames of the next window
     n_total = 0
 
@@ -147,17 +317,26 @@ def compute_features_streaming(chunk_iter, device=None) -> Dict:
             tuple(p[0] for p in parts)
         windows = [_pad_window(np.concatenate([ld[None], p]), target)
                    for ld, p in zip(leads, parts)]
-        pend.append((run_prep_window(*windows, device=dev,
-                                     fused_iter=fused_iter), valid,
-                     prev_last is None, target))
+        if host_mode:
+            vec = run_prep_window(*windows, device=dev, cfg=cfg)
+        else:
+            vec = _device_window_vector(run_window(windows[0], dev, cfg))
+        pend.append((vec, valid, prev_last is None, target))
         prev_last = tuple(p[-1] for p in parts)
 
     for frames in chunk_iter:
         if frames.shape[0] == 0:
             continue
-        s320, s32, tex = host_prep_mod.host_prep(frames)
-        tex_parts.append(tex)
-        parts = (s320, s32)
+        if host_mode:
+            s320, s32, tex = host_prep_mod.host_prep(frames,
+                                                     native=cfg.native)
+            tex_parts.append(tex)
+            parts = (s320, s32)
+        else:
+            gray = _to_gray_host(frames, cfg.native)
+            if chunk is None:
+                chunk = _chunk_size(*gray.shape[1:3])
+            parts = (gray,)
         if held is not None:
             parts = tuple(np.concatenate([h_, p])
                           for h_, p in zip(held, parts))
@@ -175,27 +354,48 @@ def compute_features_streaming(chunk_iter, device=None) -> Dict:
              "textures": [], "timeline_ai": []}
     if n_total == 0:
         return feats
-
-    # the one device→host fetch: every window's results at once
-    fetched = torch.cat([p[0] for p in pend]).cpu().numpy()
-    sinks = ([], [], [])
-    off = 0
-    for _, valid, is_first, target in pend:
-        k = target - 1
-        vec = fetched[off:off + 3 * k]
-        off += 3 * k
-        _window_slices(0 if is_first else 1, valid, vec[:k], vec[k:2 * k],
-                       vec[2 * k:], sinks)
-    return _assemble(feats, np.concatenate(tex_parts).tolist(), *sinks)
+    sinks = ([], [], [], [])
+    _fetch_windows(pend, not host_mode, sinks)
+    if host_mode:
+        sinks = (np.concatenate(tex_parts).tolist(),) + sinks[1:]
+    return _assemble(feats, *sinks)
 
 
 def compute_features(frames: np.ndarray, device=None) -> Dict:
-    """Per-frame feature lists for a [N, H, W, 3] uint8 BGR batch (the
-    streaming path over chunk-sized slices; identical results)."""
+    """Per-frame feature lists for a [N, H, W, 3] uint8 BGR batch.
+
+    Host prep runs the streaming path over chunk-sized slices (identical
+    results), or the change gate under ``AVD_CHANGE_GATE=1``; device prep
+    pads every window, the tail too, to the full chunk, as the JAX
+    package's ``compute_features`` does."""
     n = frames.shape[0]
-    return compute_features_streaming(
-        (frames[i:i + _DEFAULT_CHUNK] for i in range(0, n, _DEFAULT_CHUNK)),
-        device=device)
+    cfg = config_mod.get_config()
+    if cfg.prep_mode == "host" and not cfg.change_gate:
+        return compute_features_streaming(
+            (frames[i:i + _DEFAULT_CHUNK]
+             for i in range(0, n, _DEFAULT_CHUNK)), device=device)
+    dev = device_mod.resolve(device)
+    feats = {"dup": 0, "total": n, "flow_means": [], "flow_vars": [],
+             "textures": [], "timeline_ai": []}
+    if n == 0:
+        return feats
+    if cfg.prep_mode == "host":
+        s320, s32, tex = host_prep_mod.host_prep(frames, native=cfg.native)
+        return _compute_features_gated(feats, s320, s32, tex, dev, cfg)
+    gray = _to_gray_host(frames, cfg.native)
+    chunk = _chunk_size(*gray.shape[1:3])
+    pend = []
+    for start in range(0, n, chunk):
+        valid = min(chunk, n - start)
+        lead = gray[start - 1] if start > 0 else gray[0]
+        window = _pad_window(
+            np.concatenate([lead[None], gray[start:start + valid]]),
+            chunk + 1)
+        pend.append((_device_window_vector(run_window(window, dev, cfg)),
+                     valid, start == 0, chunk + 1))
+    sinks = ([], [], [], [])
+    _fetch_windows(pend, True, sinks)
+    return _assemble(feats, *sinks)
 
 
 def analyze_frames(frames: np.ndarray, w: int, h: int, fps: float,

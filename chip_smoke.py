@@ -53,7 +53,26 @@ Phases, in order; any failure exits non-zero before the result line:
 11. fused-iteration path: 61 of the frames with ``AVD_PALLAS_ITER=1``:
     ``flow_iter`` launched 24 times (2 windows × 4 levels × 3 rounds), warp
     and blur+solve not at all, flow stats and ai_score against the unfused
-    run on the card; device pass and device launches per window for both.
+    run on the card; device pass and device launches per window for both;
+12. host runtime: the C++ host prep (``avd_tpu_torch/native``, built by g++
+    in phase 2 beside nvcc) against its numpy plain version on the 145
+    1080p frames and on 720p, 360×640 and 33×47 frames, all three outputs
+    equal; host prep seconds both ways; then, warm, the main path's steady
+    frames/s (best of 7 ``analyze_batch`` calls), its device pass and the
+    card's idle share against phase 7's busy time, and a host profile of
+    one call (``chiprun_out/analyze_batch_cprofile.txt``);
+13. bf16 kernels: warp and blur+solve on bf16 inputs against their plain
+    versions at [48,·,H,W] for the four levels (warp in-bounds |Δ| <= 1e-5,
+    out-of-bounds 0; blur+solve equal bit for bit), timed beside the
+    float32 instances of phases 3 and 4, with their bytes bounds;
+14. modes, on the 61-frame clip: ``AVD_FLOW_BF16=1`` (both kernels
+    launched 24 times on bf16 and never on float32; per-pair flow stats
+    within the bound of ``tests/test_flow_bf16.py`` of the float32 run),
+    ``AVD_PREP=device`` (|Δai_score| <= 1e-3 and the same label as host
+    prep), ``AVD_CHANGE_GATE=1`` on the clip with a 20-frame static run
+    put in front (pairs skipped, the moving pairs within rtol 1e-3 of the
+    ungated run) and ``AVD_FREQ_FORENSICS=1`` (card against CPU within
+    rtol 1e-4).
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It needs the repository beside it
@@ -68,6 +87,7 @@ import statistics
 import subprocess
 import sys
 import time
+import threading
 from unittest import mock
 
 import numpy as np
@@ -196,8 +216,25 @@ def phase_device():
 
 
 def phase_build():
+    """nvcc for every CUDA source and g++ for the host runtime, at once."""
+    from avd_tpu_torch.native import _build as host_build
     from avd_tpu_torch.ops.kernels import _build
+    host = {}
+
+    def gxx():
+        t0 = time.perf_counter()
+        try:
+            host["path"] = host_build.build()
+        except Exception as e:  # reported below, after nvcc is done
+            host["error"] = e
+        host["seconds"] = time.perf_counter() - t0
+
+    t = threading.Thread(target=gxx)
+    t.start()
     secs = _build.build_all()
+    t.join()
+    if "error" in host:
+        raise PhaseError(f"host runtime build: {host['error']}")
     os.makedirs("chiprun_out", exist_ok=True)
     path = os.path.join("chiprun_out", "nvcc_ptxas.txt")
     with open(path, "w") as f:
@@ -205,6 +242,9 @@ def phase_build():
             f.write(f"== {name}.cu\n{text}\n")
     log(f"build: {len(_build.SOURCES)} CUDA sources in {secs:.2f} s; "
         f"registers and shared memory per kernel in {path}")
+    log(f"build: host runtime {os.path.basename(host['path'])} by "
+        f"{host_build.version()} in {host['seconds']:.2f} s "
+        f"({'compiled' if host_build.BUILD_INFO else 'found built'})")
 
 
 def _warp_cases(h, gen, pairs=PAIRS):
@@ -313,7 +353,8 @@ def ptxas_lines(source, kernel):
         elif name and kernel in name and "spill" in line:
             spill = line.strip()
         elif name and kernel in name and "Used" in line:
-            args = ",".join(re.findall(r"Li(\d+)E", name))
+            args = ",".join(re.findall(r"Li(\d+)E", name)
+                            + (["bf16"] if "nv_bfloat16" in name else []))
             used = line.split(":", 1)[1].strip()
             out.append(f"{kernel}<{args}>: {used}; {spill}")
     return out or [f"{kernel}: not built in this run"]
@@ -332,10 +373,19 @@ def _reset_counters():
         mod.LAUNCHES = 0
     for which in mods["mha"].VARIANT_LAUNCHES:
         mods["mha"].VARIANT_LAUNCHES[which] = 0
+    for name in ("warp_bilinear", "box_blur_solve"):
+        for dtype in mods[name].DTYPE_LAUNCHES:
+            mods[name].DTYPE_LAUNCHES[dtype] = 0
 
 
 def _counters():
-    return {name: mod.LAUNCHES for name, mod in _kernel_modules().items()}
+    """Launches per wrapper; the bf16 launches of warp and blur+solve also
+    under ``<name>_bf16`` (they are counted in ``<name>`` too)."""
+    mods = _kernel_modules()
+    out = {name: mod.LAUNCHES for name, mod in mods.items()}
+    for name in ("warp_bilinear", "box_blur_solve"):
+        out[f"{name}_bf16"] = mods[name].DTYPE_LAUNCHES["bfloat16"]
+    return out
 
 
 def phase_main_path():
@@ -365,9 +415,10 @@ def phase_main_path():
     launches = _counters()
     log(f"main path launches: {launches}")
     for name in ("warp_bilinear", "box_blur_solve"):
-        check(launches[name] == 48,
-              f"{name} launched {launches[name]} times on the main path, "
-              "expected 48 (4 windows x 4 levels x 3 rounds)")
+        check(launches[name] == 48 and launches[f"{name}_bf16"] == 0,
+              f"{name} launched {launches[name]} times on the main path "
+              f"({launches[f'{name}_bf16']} on bf16), expected 48 on "
+              "float32 (4 windows x 4 levels x 3 rounds)")
     schema.validate(env)
     summ = env["video"]["summary"]
     check(all(np.isfinite(v) for v in summ.values()
@@ -398,7 +449,7 @@ def phase_main_path():
     for _ in range(3):
         it = iter(prepped)
         with mock.patch.object(video_features.host_prep_mod, "host_prep",
-                               lambda f: next(it)):
+                               lambda f, **_: next(it)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             video_features.compute_features(frames, device=cuda)
@@ -408,7 +459,8 @@ def phase_main_path():
         f"({FRAMES_MAIN / best:.2f} frames/s; runs "
         f"{', '.join(f'{t:.3f}' for t in e2e)}), host prep "
         f"{min(prep):.3f} s, device pass (prep precomputed) "
-        f"{min(dev):.3f} s, threads {os.cpu_count()}")
+        f"{min(dev):.3f} s (runs {', '.join(f'{t:.3f}' for t in dev)}), "
+        f"threads {os.cpu_count()}")
     return launches, frames, fb, best
 
 
@@ -480,7 +532,7 @@ def _device_pass(frames, prepped=None):
                    for i in range(0, frames.shape[0], chunk)]
     it = iter(prepped)
     with mock.patch.object(video_features.host_prep_mod, "host_prep",
-                           lambda f: next(it)):
+                           lambda f, **_: next(it)):
         feats = video_features.compute_features(frames, device=DEV)
     return feats, prepped
 
@@ -494,14 +546,16 @@ def phase_profile(frames, e2e_s):
     path = os.path.join("chiprun_out", "torch_profile_window.txt")
     with open(path, "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=40))
+    idle = 1 - busy_ms / 1e3 / e2e_s
     log(f"profile: device busy {busy_ms:.3f} ms per {FRAMES_MAIN}-frame "
-        f"clip; idle share {1 - busy_ms / 1e3 / e2e_s:.4f} of the "
+        f"clip; idle share {idle:.4f} of the "
         f"{e2e_s:.3f} s end-to-end run; table in {path}")
     for name in ("blur_solve_kernel", "warp_bilinear_kernel"):
         ms, n = _kernel_ms(avgs, name)
         check(n == 48, f"the profile holds {n} launches of {name}")
         log(f"profile: {name} {ms:.3f} ms in {n} launches "
             f"({100 * ms / busy_ms:.2f} % of the device-busy time)")
+    return busy_ms
 
 
 def _close(out, ref, atol, rtol):
@@ -843,6 +897,268 @@ def phase_fused_iter(frames):
     return on
 
 
+def _equal_planes(a, b):
+    return all(x.dtype == y.dtype and np.array_equal(x, y)
+               for x, y in zip(a, b))
+
+
+def phase_host_runtime(frames, fb, busy_ms):
+    """The C++ host prep against its numpy plain version, bit for bit, and
+    both timed on the 145 frames; then the main path's steady state, warm:
+    ``analyze_batch``, its host prep and device pass, the card's idle share
+    against phase 7's device-busy time, and a host profile of one call."""
+    import cProfile
+    import pstats
+
+    import torch
+    from avd_tpu_torch.analyzers import video as video_an
+    from avd_tpu_torch.ops import host_prep
+    cases = {f"{FRAMES_MAIN} x {H_MAIN}x{W_MAIN}": frames}
+    for i, (h, w) in enumerate([(720, 1280), (360, 640), (33, 47)]):
+        cases[f"8 x {h}x{w}"] = pan_frames(8, h, w, seed=10 + i)
+    times = {}
+    for name, f in cases.items():
+        t0 = time.perf_counter()
+        nat = host_prep.host_prep(f)
+        t1 = time.perf_counter()
+        plain = host_prep.host_prep_plain(f)
+        t2 = time.perf_counter()
+        check(_equal_planes(nat, plain),
+              f"host prep {name}: native and plain outputs differ")
+        times[name] = (t1 - t0, t2 - t1)
+        log(f"host runtime {name}: native equals plain on all three "
+            f"outputs (native {t1 - t0:.3f} s, plain {t2 - t1:.3f} s)")
+    best = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        host_prep.host_prep(frames)
+        best.append(time.perf_counter() - t0)
+    nat_s, plain_s = min(best + [times[next(iter(cases))][0]]), \
+        times[next(iter(cases))][1]
+
+    cuda = torch.device(DEV)
+    e2e = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        video_an.analyze_batch(fb, device=cuda)
+        e2e.append(time.perf_counter() - t0)
+    dev = []
+    _, prepped = _device_pass(frames)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _device_pass(frames, prepped)
+        dev.append(time.perf_counter() - t0)
+    e2e_s = min(e2e)
+    idle = 1 - busy_ms / 1e3 / e2e_s
+    log(f"host runtime: host prep of the {FRAMES_MAIN} 1080p frames native "
+        f"{nat_s:.3f} s, numpy plain {plain_s:.3f} s ({plain_s / nat_s:.1f}x)"
+        f", threads {os.cpu_count()}")
+    log(f"host runtime: main path steady (warm) analyze_batch {e2e_s:.3f} s "
+        f"= {FRAMES_MAIN / e2e_s:.2f} frames/s (median "
+        f"{statistics.median(e2e):.3f} s; runs "
+        f"{', '.join(f'{t:.3f}' for t in e2e)}), device pass (prep "
+        f"precomputed) {min(dev):.3f} s; card idle share {idle:.4f} "
+        f"({busy_ms:.3f} ms busy, phase 7)")
+
+    # where the host's time goes in one warm call
+    prof = cProfile.Profile()
+    prof.enable()
+    video_an.analyze_batch(fb, device=cuda)
+    prof.disable()
+    path = os.path.join("chiprun_out", "analyze_batch_cprofile.txt")
+    with open(path, "w") as f:
+        pstats.Stats(prof, stream=f).sort_stats("tottime").print_stats(40)
+    top = sorted(pstats.Stats(prof).stats.items(),
+                 key=lambda kv: -kv[1][2])[:6]
+    log("host runtime: one analyze_batch, host time by function (tottime): "
+        + "; ".join(f"{os.path.basename(k[0])}:{k[2]} {v[2]:.4f} s "
+                    f"in {v[1]} calls" for k, v in top) + f"; all in {path}")
+
+
+def phase_bf16_kernels(gen, warp32, blur32):
+    """The bf16 instances of warp and blur+solve against their plain
+    versions at the full window's levels, timed beside the float32
+    instances of phases 3 and 4."""
+    import torch
+    from avd_tpu_torch.ops import flow as flow_ops
+    from avd_tpu_torch.ops.kernels import blur_solve, warp
+    f32_warp = {r[0]: r for r in warp32}
+    f32_blur = {r[0]: r for r in blur32}
+    wrows, brows, werr, berr = [], [], 0.0, 0.0
+    for h in LEVELS:
+        src32, cases = _warp_cases(h, gen)
+        src = src32.bfloat16()
+        for name, fl in cases.items():
+            out = warp.warp_bilinear(src, fl)
+            ref = warp.warp_bilinear_plain(src, fl)
+            inb = flow_ops._in_bounds(fl)[:, None].expand_as(out)
+            err = float((out - ref)[inb].abs().max()) if inb.any() else 0.0
+            check(err <= 1e-5, f"warp bf16 {h} {name}: in-bounds |Δ| {err}")
+            check(not bool(out[~inb].any()),
+                  f"warp bf16 {h} {name}: out-of-bounds pixels not 0")
+            check(out.dtype == torch.float32, "warp bf16 output type")
+            werr = max(werr, err)
+        fl = cases["smooth"]
+        n_inb = int(flow_ops._in_bounds(fl).sum())
+        ms = time_ms(lambda: warp.warp_bilinear(src, fl))
+        plain = time_ms(lambda: warp.warp_bilinear_plain(src, fl))
+        px = PAIRS * h * h
+        bnd, by = bound_ms(px * (5 * 2 + 2 * 4 + 5 * 4),
+                           px * 10 + n_inb * 35)
+        wrows.append((h, ms, plain, None, bnd, by))
+        log(f"warp bf16 [{PAIRS},5,{h},{h}]: kernel {ms:.4f} ms (float32 "
+            f"{f32_warp[h][1]:.4f}), plain {plain:.4f} ms, bound {bnd:.4f} "
+            f"ms ({by}; float32 {f32_warp[h][4]:.4f}); max in-bounds |Δ| "
+            f"{werr:.3g}")
+    for h in LEVELS:
+        m = _psd_m(gen, PAIRS, h, h).bfloat16()
+        out = blur_solve.box_blur_solve(m)
+        ref = blur_solve.box_blur_solve_plain(m)
+        err, ok = _close(out, ref, 2e-4, 1e-3)
+        check(ok and torch.equal(out, ref),
+              f"blur+solve bf16 [{PAIRS},5,{h},{h}]: |Δ| {err}, not equal to "
+              "the plain version")
+        berr = max(berr, err)
+        ms = time_ms(lambda: blur_solve.box_blur_solve(m))
+        plain = time_ms(lambda: blur_solve.box_blur_solve_plain(m))
+        px = PAIRS * h * h
+        bnd, by = bound_ms(px * (5 * 2 + 2 * 4), px * 170)
+        brows.append((h, ms, plain, None, bnd, by))
+        log(f"blur_solve bf16 [{PAIRS},5,{h},{h}]: kernel {ms:.4f} ms "
+            f"(float32 {f32_blur[h][1]:.4f}), plain {plain:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}; float32 {f32_blur[h][4]:.4f}); max |Δ| "
+            f"{err:.3g}")
+    for line in ptxas_lines("blur_solve", "blur_solve_kernel"):
+        log(f"ptxas: {line}")
+    for line in ptxas_lines("warp", "warp_bilinear_kernel"):
+        log(f"ptxas: {line}")
+    return wrows, werr, brows, berr
+
+
+def _flow_pairs_of(feats):
+    return np.asarray(feats["flow_means"]), np.asarray(feats["flow_vars"])
+
+
+def phase_modes(frames):
+    """AVD_FLOW_BF16, AVD_PREP=device, AVD_CHANGE_GATE and
+    AVD_FREQ_FORENSICS on the 61-frame clip, each against the default."""
+    import torch
+    from avd_tpu_torch import pipeline
+    from avd_tpu_torch.analyzers import video as video_an
+    from avd_tpu_torch.ingest import video_reader
+    from avd_tpu_torch.ops import forensic_freq, video_features
+    cuda = torch.device(DEV)
+    clip = frames[:FRAMES_FUSED]
+    fps = 30.0
+    dur = FRAMES_FUSED * video_reader.sampling_step(fps) / fps
+    fb = video_reader.FrameBatch(clip, FRAMES_FUSED, fps, W_MAIN, H_MAIN,
+                                 dur)
+    wav = speech_like(3.0, seed=6)
+    meta = clip_meta(W_MAIN, H_MAIN, fps, dur)
+    want = -(-FRAMES_FUSED // video_features._DEFAULT_CHUNK) * \
+        len(LEVELS) * ROUNDS
+
+    def drive(**env):
+        """The envelope with ``env`` set, the launches of that run, and the
+        best of two steady ``analyze_batch`` calls."""
+        _set_env(**env)
+        _reset_counters()
+        out = pipeline.analyze_decoded(fb, wav, 16000, dict(meta),
+                                       device=cuda)
+        launches = _counters()
+        best = 1e9
+        for _ in range(2):
+            t0 = time.perf_counter()
+            video_an.analyze_batch(fb, device=cuda)
+            best = min(best, time.perf_counter() - t0)
+        return out, launches, best
+
+    def ai(env):
+        return env["result"]["ai_score"], env["result"]["label"]
+
+    try:
+        base, base_n, base_s = drive()
+        f32 = video_features.compute_features(clip, device=cuda)
+
+        bf, bf_n, bf_s = drive(AVD_FLOW_BF16="1")
+        log(f"mode AVD_FLOW_BF16=1 launches: {bf_n}")
+        for name in ("warp_bilinear", "box_blur_solve"):
+            check(bf_n[f"{name}_bf16"] == want and bf_n[name] == want,
+                  f"AVD_FLOW_BF16=1: {name} launched {bf_n[name]} times, "
+                  f"{bf_n[f'{name}_bf16']} on bf16; expected {want}, all bf16")
+        bf_feats = video_features.compute_features(clip, device=cuda)
+        (m32, v32), (m16, v16) = _flow_pairs_of(f32), _flow_pairs_of(bf_feats)
+        dm, dv = float(np.abs(m16 - m32).max()), float(np.abs(v16 - v32).max())
+        log(f"mode AVD_FLOW_BF16=1 against float32 over {m32.size} pairs: "
+            f"max |Δ flow mean| {dm:.3g}, max |Δ flow var| {dv:.3g}, "
+            f"ai_score {ai(bf)} vs {ai(base)}; analyze_batch {bf_s:.3f} s "
+            f"(float32 {base_s:.3f} s)")
+        check(dm < 0.05 and dv < 0.08 and
+              np.array_equal(v16 > 0.5, v32 > 0.5),
+              "AVD_FLOW_BF16=1 outside the study bound of the float32 flow")
+
+        dev, dev_n, dev_s = drive(AVD_FLOW_BF16=None, AVD_PREP="device")
+        d_ai = abs(ai(dev)[0] - ai(base)[0])
+        log(f"mode AVD_PREP=device: ai_score {ai(dev)} vs host prep "
+            f"{ai(base)} (|Δ| {d_ai:.3g}), flow_mean "
+            f"{dev['video']['summary']['flow_mean']:.6f} vs "
+            f"{base['video']['summary']['flow_mean']:.6f}; launches {dev_n}; "
+            f"analyze_batch {dev_s:.3f} s (host prep {base_s:.3f} s)")
+        check(d_ai <= 1e-3 and ai(dev)[1] == ai(base)[1],
+              f"AVD_PREP=device: ai_score differs by {d_ai} or the label")
+        check(dev_n["warp_bilinear"] == want
+              and dev_n["box_blur_solve"] == want,
+              f"AVD_PREP=device launches {dev_n}")
+
+        # a 20-frame static run in front of the moving frames
+        gclip = np.concatenate([np.repeat(clip[:1], 20, axis=0),
+                                clip[:FRAMES_FUSED - 20]])
+        _set_env(AVD_PREP=None)
+        ungated = video_features.compute_features(gclip, device=cuda)
+        _set_env(AVD_CHANGE_GATE="1")
+        _reset_counters()
+        gated = video_features.compute_features(gclip, device=cuda)
+        g_n = _counters()
+        (mu, vu), (mg, vg) = _flow_pairs_of(ungated), _flow_pairs_of(gated)
+        moving = mg != 0.0
+        skipped = gated["skipped_pairs"]
+        rel = float(np.max(np.abs(mg[moving] - mu[moving])
+                           / np.abs(mu[moving]))) if moving.any() else 0.0
+        log(f"mode AVD_CHANGE_GATE=1: {skipped} of {mg.size} pairs skipped, "
+            f"{int(moving.sum())} moving pairs within rel {rel:.3g} of the "
+            f"ungated flow mean; dup {gated['dup']} vs {ungated['dup']}; "
+            f"launches {g_n}")
+        check(skipped >= 19 and int(moving.sum()) == mg.size - skipped,
+              f"AVD_CHANGE_GATE=1 skipped {skipped} pairs")
+        check(rel <= 1e-3 and np.allclose(vg[moving], vu[moving], rtol=1e-3,
+                                           atol=1e-5),
+              f"AVD_CHANGE_GATE=1: moving pairs differ by {rel} relative")
+        check(gated["dup"] == ungated["dup"], "gated duplicates differ")
+        check(g_n["warp_bilinear"] > 0, "the gated flow ran no warp kernel")
+
+        _set_env(AVD_CHANGE_GATE=None, AVD_FREQ_FORENSICS="1")
+        t0 = time.perf_counter()
+        freq = video_an.analyze_batch(fb, device=cuda)["summary"]["freq"]
+        freq_s = time.perf_counter() - t0
+        gray = video_features._to_gray_host(clip)
+        t0 = time.perf_counter()
+        on_cpu = forensic_freq.summarize(gray, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        worst = max(abs(freq[k] - on_cpu[k]) / max(abs(on_cpu[k]), 1e-12)
+                    for k in on_cpu)
+        log(f"mode AVD_FREQ_FORENSICS=1: {json.dumps(freq)}; card against "
+            f"CPU max rel {worst:.3g} (analyze_batch with it {freq_s:.3f} s, "
+            f"the statistics on the CPU {cpu_s:.3f} s)")
+        check(set(freq) == set(on_cpu) and worst <= 1e-4,
+              f"AVD_FREQ_FORENSICS=1: card and CPU differ by {worst}")
+        check(all(np.isfinite(v) for v in freq.values()), "freq not finite")
+    finally:
+        _set_env(AVD_FLOW_BF16=None, AVD_PREP=None, AVD_CHANGE_GATE=None,
+                 AVD_FREQ_FORENSICS=None)
+    return bf_n
+
+
 def kernel_entry(name, source, replaces, rows, max_err, launches):
     ms = ROUNDS * sum(r[1] for r in rows)
     plain = ROUNDS * sum(r[2] for r in rows)
@@ -901,11 +1217,15 @@ def main():
         blur_rows, blur_err = phase_blur_solve(gen)
         launches, frames, fb, e2e_s = phase_main_path()
         phase_card_vs_cpu()
-        phase_profile(frames, e2e_s)
+        busy_ms = phase_profile(frames, e2e_s)
         mha_rows, mha_err = phase_mha(gen)
         iter_rows, iter_err = phase_flow_iter(gen)
         det_launches = phase_detector(frames, fb)
         iter_launches = phase_fused_iter(frames)
+        phase_host_runtime(frames, fb, busy_ms)
+        w16_rows, w16_err, b16_rows, b16_err = phase_bf16_kernels(
+            gen, warp_rows, blur_rows)
+        bf16_launches = phase_modes(frames)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -927,6 +1247,12 @@ def main():
                      iter_rows[:len(LEVELS)], iter_err,
                      iter_launches["solve_iteration"]),
         mha_entry(mha_rows, mha_err, det_launches["mha"]),
+        kernel_entry("warp_bilinear_bf16", "avd_tpu_torch/csrc/warp.cu",
+                     "avd_tpu/ops/pallas/warp.py:143", w16_rows, w16_err,
+                     bf16_launches["warp_bilinear_bf16"]),
+        kernel_entry("box_blur_solve_bf16", "avd_tpu_torch/csrc/blur_solve.cu",
+                     "avd_tpu/ops/pallas/blur_solve.py:97", b16_rows,
+                     b16_err, bf16_launches["box_blur_solve_bf16"]),
     ]
     # what the fused round replaces: warp kernel + PyTorch update +
     # blur+solve kernel, same unit

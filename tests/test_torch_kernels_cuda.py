@@ -82,6 +82,51 @@ def test_blur_solve_kernel_keeps_the_plain_order_of_sums(gen, b, h, w):
                        blur_solve.box_blur_solve_plain(m))
 
 
+@pytest.mark.parametrize("b,h,w", _SHAPES + [(4, 320, 320), (3, 41, 67)])
+@pytest.mark.parametrize("scale", [0.0, 3.0, 40.0])
+def test_warp_kernel_equals_plain_in_both_types(gen, b, h, w, scale):
+    """The float32 instance and the bf16 one (taps widened on load) each
+    equal the plain version on the same input bit for bit; bf16 stays
+    within its rounding (8e-3) of the float32 field's result."""
+    src = torch.rand((b, 5, h, w), generator=gen, device="cuda")
+    fl = (torch.rand((b, 2, h, w), generator=gen, device="cuda") - 0.5) \
+        * scale
+    before = dict(warp.DTYPE_LAUNCHES)
+    out32 = warp.warp_bilinear(src, fl)
+    out16 = warp.warp_bilinear(src.bfloat16(), fl)
+    assert warp.DTYPE_LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert out16.dtype == torch.float32
+    assert torch.equal(out32, warp.warp_bilinear_plain(src, fl))
+    assert torch.equal(out16, warp.warp_bilinear_plain(src.bfloat16(), fl))
+    assert torch.allclose(out16, out32, atol=8e-3, rtol=8e-3)
+
+
+@pytest.mark.parametrize("b,h,w", _BLUR_SHAPES + [(3, 41, 67), (2, 24, 40)])
+def test_blur_solve_kernel_bf16_equals_plain(gen, b, h, w):
+    """bf16 M, staged through registers and widened: the same sums in the
+    same order as the plain version on the widened field, bit for bit, on
+    both tiles, aligned (W % 8 == 0) and not."""
+    m = _psd_m(gen, b, h, w)
+    before = dict(blur_solve.DTYPE_LAUNCHES)
+    out = blur_solve.box_blur_solve(m.bfloat16())
+    assert blur_solve.DTYPE_LAUNCHES == {**before,
+                                         "bfloat16": before["bfloat16"] + 1}
+    assert out.dtype == torch.float32
+    assert torch.equal(out, blur_solve.box_blur_solve_plain(m.bfloat16()))
+
+
+def test_blur_solve_kernel_bf16_within_rounding_of_f32(gen):
+    """On a well-conditioned M (``tests/test_flow_bf16.py``'s) bf16
+    storage moves the flow by at most 2e-2."""
+    g = torch.rand((5, 2, 80, 80), generator=gen, device="cuda")
+    m = torch.stack([g[0] + 1.0, (g[1] - 0.5) * 0.2, g[2] + 1.0,
+                     (g[3] - 0.5) * 2.0, (g[4] - 0.5) * 2.0],
+                    dim=1).contiguous()
+    assert torch.allclose(blur_solve.box_blur_solve(m.bfloat16()),
+                          blur_solve.box_blur_solve(m), atol=2e-2,
+                          rtol=2e-2)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     src = torch.rand((1, 5, 8, 8), generator=gen, device="cuda")
     fl = torch.zeros((1, 2, 8, 8), device="cuda")
