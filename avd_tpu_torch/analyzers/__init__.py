@@ -1,1 +1,1 @@
-"""Analyzers of the port: video (heuristic path), heuristics, fusion."""
+"""Analyzers of the port: audio, video, fusion, heuristics, meta and forensic."""

@@ -1,1 +1,2 @@
-"""Decoded-media containers of the port (no container decode here)."""
+"""Host-side media ingest of the port: probing, frame batches, audio, container
+parsing.  The only layer that touches files and decoders."""

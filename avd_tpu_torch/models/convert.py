@@ -5,9 +5,12 @@ of numpy arrays (``avd_tpu/models/detector.py::init_params`` names the
 keys) and returns the port's tree: the same keys and the same ``[in, out]``
 weight layout, as f32 torch tensors on the CPU, every shape checked against
 the config.  ``save_npz`` / ``load_npz`` store a tree as one flat ``.npz``
-(``layers.3.qkv_w`` style names).  This module imports numpy and torch
-only; ``tools/torch_convert_weights.py`` is the script that reads an orbax
-checkpoint with the JAX package and writes the ``.npz``.
+(``layers.3.qkv_w`` style names).  The leaves the forward rounds to bf16
+anyway (``detector._BF16``) are stored as their bf16 bit patterns
+(uint16), the rest as f32: exact for inference, and half the bytes.
+This module imports numpy and torch only; ``tools/torch_convert_weights.py``
+is the script that reads an orbax checkpoint with the JAX package and
+writes the ``.npz``.
 """
 
 from __future__ import annotations
@@ -48,13 +51,29 @@ def from_jax_params(tree: Dict[str, Any],
     return {k: out[k] for k in shapes}  # the config's key order
 
 
+def _stored(name: str, value: torch.Tensor) -> np.ndarray:
+    """A leaf as written: bf16 bit patterns (uint16) for the bf16
+    operands of the forward pass, f32 for the rest."""
+    value = value.detach().cpu()
+    if name in detector._BF16:
+        return value.to(torch.bfloat16).view(torch.int16).numpy() \
+            .view(np.uint16)
+    return value.float().numpy()
+
+
+def _loaded(value: np.ndarray) -> np.ndarray:
+    """A stored leaf as f32 (bf16 bit patterns widened exactly)."""
+    if value.dtype == np.uint16:
+        return (value.astype(np.uint32) << 16).view(np.float32)
+    return value
+
+
 def save_npz(path: str, params: Dict[str, Any]) -> None:
     """Write a parameter tree as one flat ``.npz``."""
-    flat = {k: v.detach().cpu().numpy() for k, v in params.items()
-            if k != "layers"}
+    flat = {k: _stored(k, v) for k, v in params.items() if k != "layers"}
     for i, lp in enumerate(params["layers"]):
         for k, v in lp.items():
-            flat[f"layers.{i}.{k}"] = v.detach().cpu().numpy()
+            flat[f"layers.{i}.{k}"] = _stored(k, v)
     np.savez(path, **flat)
 
 
@@ -68,7 +87,7 @@ def load_npz(path: str, cfg: detector.ViTConfig) -> Dict[str, Any]:
                 if int(i) >= cfg.depth:
                     raise ValueError(f"{name}: the config has {cfg.depth} "
                                      "layers")
-                tree["layers"][int(i)][key] = z[name]
+                tree["layers"][int(i)][key] = _loaded(z[name])
             else:
-                tree[name] = z[name]
+                tree[name] = _loaded(z[name])
     return from_jax_params(tree, cfg)

@@ -7,12 +7,17 @@ Port of ``avd_tpu/models/scoring.py`` for the per-frame ViT on one device:
   analyzer's output;
 * ``AVD_DETECTOR_BLEND=x`` (0..1) blends the detector probability into
   ``timeline_ai`` (0 keeps the pure heuristic);
-* ``AVD_DETECTOR_PRESET`` picks the config (default ``full``: 224 px,
-  width 384, depth 6);
+* ``AVD_DETECTOR_PRESET`` picks the config.  The default follows
+  ``avd_tpu``'s rule (``_default_preset``): ``full`` (224 px, width 384,
+  depth 6) when its converted checkpoint ships in ``weights/``, else
+  ``small`` when that one does, else ``full``;
 * ``AVD_DETECTOR_CKPT`` names a directory written by
   ``tools/torch_convert_weights.py`` (``params.npz`` and, beside it,
-  ``calibration.json``); absent, the model runs with seeded random weights
-  and says so (``"weights": "random_init"``);
+  ``calibration.json``); absent, the preset's shipped checkpoint
+  (``weights/detector_full``, ``weights/detector_small``) serves, and
+  without one the model runs with seeded random weights and says so
+  (``"weights": "random_init"``).  An orbax directory of ``avd_tpu``
+  raises, naming the converter;
 * ``AVD_DETECTOR_TEMP`` overrides the calibration temperature;
 * ``AVD_ATTN_FUSED=1`` routes attention through the hand-written kernel
   (``ops/kernels/attention.py``).
@@ -86,6 +91,49 @@ def _temperature(ckpt) -> float:
     return 1.0
 
 
+# the shipped checkpoints of avd_tpu/models/weights, converted for the port
+# by tools/torch_convert_weights.py
+_WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "weights")
+_SHIPPED = {("vit", "small"): "detector_small",
+            ("vit", "full"): "detector_full",
+            ("vit", "moe_small"): "moe_small",
+            ("cnn", "small"): "cnn_small",
+            ("temporal", "small"): "temporal_small"}
+
+
+def _default_preset(arch: str) -> str:
+    """The trained serving-size ``full`` when its checkpoint ships, else
+    the trained ``small``, else ``full`` on seeded weights; the other
+    families default ``small`` (``avd_tpu/models/scoring.py:68-77``)."""
+    if arch != "vit":
+        return "small"
+    if os.path.isdir(os.path.join(_WEIGHTS_DIR, "detector_full")):
+        return "full"
+    if os.path.isdir(os.path.join(_WEIGHTS_DIR, "detector_small")):
+        return "small"
+    return "full"
+
+
+def _shipped_ckpt(arch: str, preset: str) -> Optional[str]:
+    """The shipped checkpoint directory of (family, preset), if any."""
+    name = _SHIPPED.get((arch, preset))
+    path = os.path.join(_WEIGHTS_DIR, name) if name else None
+    return path if path and os.path.isdir(path) else None
+
+
+def _load_params(ckpt: str, cfg):
+    """The f32 tree of a converted checkpoint directory."""
+    path = os.path.join(ckpt, convert.PARAMS_FILE)
+    if not os.path.exists(path) and os.path.exists(
+            os.path.join(ckpt, "_CHECKPOINT_METADATA")):
+        raise ValueError(
+            f"{ckpt} is an orbax checkpoint of avd_tpu; convert it for the "
+            "port with tools/torch_convert_weights.py and point "
+            "AVD_DETECTOR_CKPT at the output directory")
+    return convert.load_npz(path, cfg)
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
 
@@ -118,13 +166,13 @@ def _bundle_on(device: str):
     detector = models.family(arch)
     if quant:
         raise _not_ported("AVD_DETECTOR_QUANT=1 (int8 W8A8 serving)")
-    cfg = detector.make_config(os.getenv("AVD_DETECTOR_PRESET", "full"))
+    preset = os.getenv("AVD_DETECTOR_PRESET", _default_preset(arch))
+    cfg = detector.make_config(preset)
     if fused:
         cfg = dataclasses.replace(cfg, fused_attn=True)
-    ckpt = os.getenv("AVD_DETECTOR_CKPT")
+    ckpt = os.getenv("AVD_DETECTOR_CKPT") or _shipped_ckpt(arch, preset)
     if ckpt:
-        params = convert.load_npz(os.path.join(ckpt, convert.PARAMS_FILE),
-                                  cfg)
+        params = _load_params(ckpt, cfg)
         source = ckpt
     else:
         params = detector.init_params(0, cfg)
@@ -148,6 +196,13 @@ _bundle.cache_clear = _bundle_on.cache_clear
 def input_size(device=None) -> int:
     """Model input resolution (loads the bundle)."""
     return _bundle(device)[0].image_size
+
+
+def clip_window(device=None):
+    """Fixed scoring-window length of clip-based families (loads the
+    bundle).  None for the per-frame ViT, the one family ported, whose
+    scores do not depend on grouping."""
+    return getattr(_bundle(device)[2], "clip_window", None)
 
 
 def resize_frames(frames_bgr: np.ndarray, size: int) -> np.ndarray:

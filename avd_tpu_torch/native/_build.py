@@ -1,7 +1,9 @@
-"""Build the port's C++ host runtime with g++ and load it with ctypes.
+"""Build the port's C++ host libraries with g++ and load them with ctypes.
 
-``src/avd_native.cc`` compiles, at first use, into
-``build/avd_tpu_torch_host/libavd_native-<digest>.so`` under the checkout.
+``src/avd_native.cc`` (the host runtime) compiles, at first use, into
+``build/avd_tpu_torch_host/libavd_native-<digest>.so`` under the checkout;
+``src/avd_decode.cc`` (the libav* decoder, ``decode.py``) beside it with
+``DECODE_FLAGS`` and ``DECODE_LIBS``.
 The digest covers the source, the flags and the host CPU's feature flags
 (``-march=native`` makes a library for the machine that built it, so a
 build directory copied to another machine rebuilds instead of loading
@@ -28,6 +30,12 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
 # the JAX package's flags (avd_tpu/native/__init__.py)
 FLAGS = ("-O3", "-march=native", "-funroll-loops", "-fPIC", "-std=c++17",
          "-pthread", "-shared")
+# the decoder's flags and libraries, the JAX package's
+# (avd_tpu/native/decode.py)
+DECODE_SRC = os.path.join(_PKG, "native", "src", "avd_decode.cc")
+DECODE_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+DECODE_LIBS = ("-lavformat", "-lavcodec", "-lavutil", "-lswscale",
+               "-lswresample")
 
 BUILD_INFO: dict = {}  # what the last compile in this process took and said
 
@@ -53,17 +61,24 @@ def _cpu_flags() -> bytes:
     return b""
 
 
-def lib_path(src: str = SRC, build_dir: str = BUILD_DIR) -> str:
-    digest = hashlib.sha256(" ".join(FLAGS).encode() + b"\0" + _cpu_flags())
+def lib_path(src: str = SRC, build_dir: str = BUILD_DIR, flags=None,
+             libs=()) -> str:
+    """Where the library of ``src`` built with ``flags`` (default
+    ``FLAGS``) and ``libs`` lives."""
+    flags = FLAGS if flags is None else flags
+    digest = hashlib.sha256(" ".join(flags + libs).encode() + b"\0"
+                            + _cpu_flags())
     with open(src, "rb") as f:
         digest.update(f.read())
     stem = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(build_dir, f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
 
-def build(src: str = SRC, build_dir: str = BUILD_DIR) -> str:
+def build(src: str = SRC, build_dir: str = BUILD_DIR, flags=None,
+          libs=()) -> str:
     """The library built from ``src`` (compiled now unless it exists)."""
-    out = lib_path(src, build_dir)
+    flags = FLAGS if flags is None else flags
+    out = lib_path(src, build_dir, flags, libs)
     if os.path.exists(out):
         return out
     os.makedirs(build_dir, exist_ok=True)
@@ -72,7 +87,7 @@ def build(src: str = SRC, build_dir: str = BUILD_DIR) -> str:
         if os.path.exists(out):  # another process built it meanwhile
             return out
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [gxx(), *FLAGS, "-o", tmp, src]
+        cmd = [gxx(), *flags, "-o", tmp, src, *libs]
         t0 = time.perf_counter()
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True,

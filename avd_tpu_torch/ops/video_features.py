@@ -34,6 +34,7 @@ runs the flow only for the pairs whose 320² planes changed
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -46,11 +47,53 @@ from avd_tpu_torch.oracle import video_ref
 from avd_tpu_torch.ops import flow, hashing, laplacian, resize
 from avd_tpu_torch.ops import host_prep as host_prep_mod
 
-# Frames per device chunk (excluding the 1-frame lead-in).
-_DEFAULT_CHUNK = 48
+# Frames per device chunk (excluding the 1-frame lead-in): AVD_VIDEO_CHUNK,
+# read once at import as avd_tpu reads it (avd_tpu/ops/video_features.py:45).
+_DEFAULT_CHUNK = int(os.getenv("AVD_VIDEO_CHUNK", "48"))
 
 _FLOW_SIZE = host_prep_mod.FLOW_SIZE
 _HASH_SIZE = host_prep_mod.HASH_SIZE
+
+# True once a device window has completed in this process.  The first one
+# pays the kernels' build and the libraries' start-up, so the pipeline's
+# analyzer timeout grants a cold-start grace until this flips
+# (pipeline._analyzer_timeout); the CLI and serving warm up first.
+_DEVICE_WARM = False
+
+
+def device_warmed() -> bool:
+    return _DEVICE_WARM
+
+
+def mark_device_warm() -> None:
+    global _DEVICE_WARM
+    _DEVICE_WARM = True
+
+
+def warm_device(device=None, log=None) -> None:
+    """Build every kernel (on CUDA) and run every window bucket of the
+    chunk in force (``AVD_VIDEO_CHUNK``) once on zero planes on ``device``
+    (default CUDA), waiting for it, so the kernels' build and first
+    launches happen here instead of inside a timed analyzer call.
+
+    No-op when already warm, and under ``AVD_PREP=device``, whose window
+    shapes hold the clip's resolution; there the first request runs under
+    the cold-start grace and flips the flag when its windows complete."""
+    dev = device_mod.resolve(device)
+    if _DEVICE_WARM or config_mod.get_config().prep_mode != "host":
+        return
+    if dev.type == "cuda":  # one nvcc per source, all at once
+        from avd_tpu_torch.ops.kernels import _build
+        _build.build_all()
+    outs = []
+    for n in _window_buckets(_DEFAULT_CHUNK):
+        if log is not None:
+            log(f"warming {n}-frame device window...")
+        outs.append(run_prep_window(
+            np.zeros((n, _FLOW_SIZE, _FLOW_SIZE), np.uint8),
+            np.zeros((n, _HASH_SIZE, _HASH_SIZE), np.uint8), dev))
+    torch.cat(outs).cpu()  # one fetch: waits for every window
+    mark_device_warm()
 
 
 def _window_buckets(chunk: int):
@@ -356,6 +399,7 @@ def compute_features_streaming(chunk_iter, device=None) -> Dict:
         return feats
     sinks = ([], [], [], [])
     _fetch_windows(pend, not host_mode, sinks)
+    mark_device_warm()
     if host_mode:
         sinks = (np.concatenate(tex_parts).tolist(),) + sinks[1:]
     return _assemble(feats, *sinks)

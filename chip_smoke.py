@@ -43,7 +43,8 @@ Phases, in order; any failure exits non-zero before the result line:
    unfused sequence it replaces (warp kernel, PyTorch update, blur+solve
    kernel); the kernel's ptxas lines (registers, spills);
 10. detector path: the same 145 frames with ``AVD_DETECTOR=1``,
-    ``AVD_ATTN_FUSED=1`` and the ``full`` ViT (seeded weights) through
+    ``AVD_ATTN_FUSED=1`` and the ``full`` ViT (the shipped trained
+    weights, the port's default) through
     ``pipeline.analyze_decoded``: 145 finite probabilities, no
     ``detector_error``, the attention counter up by 6 (depth × one
     256-frame bucket), all six on the tensor-core kernel; logits card
@@ -73,6 +74,37 @@ Phases, in order; any failure exits non-zero before the result line:
     put in front (pairs skipped, the moving pairs within rtol 1e-3 of the
     ungated run) and ``AVD_FREQ_FORENSICS=1`` (card against CPU within
     rtol 1e-4).
+
+15. ``analyze_path`` on a 5 s speech-like WAV the script writes: the
+    audio block on the card (checked by the device its analyzer ran on)
+    against the same call on the CPU (timeline atol 2e-2, the bound of
+    ``tests/test_torch_audio.py`` for the speech-like wave; |Δai_score| <=
+    1e-3), no ``audio_error``, and the video block ``avd_tpu`` gives for a
+    WAV on a host without cv2 (``video_error`` ModuleNotFoundError);
+16. ``analyze_path`` on ``tests/data/corpus_v1/ai/clip_00_crf23.mp4``: the
+    route each step took (ffprobe, libav and why it is unavailable, cv2,
+    exiftool), card against CPU; then the mp4 and the WAV with the decode
+    routes patched away: the envelope ``avd_tpu`` gives on a host with no
+    decoder (neutral video block, ``ffmpeg_convert_failed`` audio, empty
+    meta, the BMFF ``forensic`` block), no frame decoded; where cv2 is
+    present, a 1080p mp4 of the 145 frames written with it (2 fps, every
+    frame sampled) through ``analyze_path`` with the detector, streaming
+    against ``AVD_STREAM=0`` (timelines equal within 1e-6 and 2e-2);
+17. the streaming video analyzer (``analyzers.video.analyze``) with decode
+    replaced by an in-memory source of the 145 frames in chunks of 32 (a
+    stand-in for decode, labelled so), ``AVD_DETECTOR=1 AVD_ATTN_FUSED=1``
+    on the shipped ``full`` weights and ``AVD_DETECTOR_SLAB=64``, against
+    ``analyze_batch`` on the same frames: ``dup_density`` equal, the
+    heuristic timeline within 1e-6, the detector timeline within 2e-2;
+    ``warp``, ``blur_solve`` and ``mha`` launched; frames/s of both;
+18. the CLI in subprocesses: its first call from a fresh copy of the tree
+    under ``build/fresh_tree`` (``git archive HEAD`` in a git checkout,
+    else the port's files), which builds the kernels there, and
+    ``--jsonl`` on the WAV and the mp4 (two lines);
+19. the fused scoring call (``AVD_ATTN_FUSED=1``, 256-frame bucket) under
+    the profiler in this process, in a subprocess from this tree and in a
+    subprocess from the fresh tree: launches and device-busy ms of each,
+    the rows that differ, and the tables under ``chiprun_out/``.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It needs the repository beside it
@@ -496,18 +528,30 @@ def phase_card_vs_cpu():
 
 
 def device_profile(fn):
-    """Run ``fn`` under ``torch.profiler``; returns (device-busy ms, count
-    of device kernels and copies, the averages).  Device-side events only:
-    an operator's row repeats the time of the kernels it launched."""
+    """Run ``fn`` twice under ``torch.profiler`` and keep the second run:
+    the first is the profiler's warm-up cycle.  Returns (device-busy ms,
+    count of device kernels and copies, the averages).  Device-side events
+    only: an operator's row repeats the time of the kernels it launched.
+
+    Without the warm-up cycle the trace can lose the first device events
+    of the window: on the H100 a detector scoring call read 13.6-14.0 ms
+    when its 154 MB pageable host→device copy (20-28 ms) and, once, its
+    embedding kernels were missing from the table, and 34-42 ms when they
+    were there (PERF.md §6, PR 6)."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     avgs = prof.key_averages()
-    dev = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the step's own row spans the whole step on the device: not work
+    dev = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     check(busy_ms > 0, "the profiler recorded no device time")
     return busy_ms, sum(e.count for e in dev), avgs
@@ -706,13 +750,13 @@ def _set_env(**env):
 
 def phase_detector(frames, fb):
     """The detector path at full width: AVD_DETECTOR=1, AVD_ATTN_FUSED=1,
-    preset ``full``, weights from a seed."""
+    the default preset (``full``) on the shipped trained weights."""
     import torch
     from avd_tpu_torch import pipeline, schema
     from avd_tpu_torch.analyzers import video as video_an
     from avd_tpu_torch.models import detector, scoring
     cuda = torch.device(DEV)
-    _set_env(AVD_DETECTOR="1", AVD_ATTN_FUSED="1", AVD_DETECTOR_PRESET="full",
+    _set_env(AVD_DETECTOR="1", AVD_ATTN_FUSED="1", AVD_DETECTOR_PRESET=None,
              AVD_DETECTOR_CKPT=None, AVD_DETECTOR_BLEND=None)
     try:
         cfg = scoring._bundle(cuda)[0]
@@ -736,7 +780,10 @@ def phase_detector(frames, fb):
         check(tl.shape == (FRAMES_MAIN,) and np.isfinite(tl).all()
               and tl.min() >= 0.0 and tl.max() <= 1.0,
               f"detector timeline: shape {tl.shape}")
-        check(det["weights"] == "random_init", f"weights {det['weights']}")
+        shipped = scoring._shipped_ckpt("vit", "full")
+        check(shipped is not None
+              and det["weights"] == f"{shipped}+T1.00",
+              f"weights {det['weights']}, not the shipped detector_full")
         check(launches["mha"] == VIT_DEPTH,
               f"mha launched {launches['mha']} times, expected {VIT_DEPTH} "
               f"(depth x one {VIT_BUCKET}-frame bucket)")
@@ -794,11 +841,15 @@ def phase_detector(frames, fb):
             mha_ms, mha_n = _kernel_ms(avgs, "::mha_")
             check(mha_n == (VIT_DEPTH if fused == "1" else 0),
                   f"AVD_ATTN_FUSED={fused}: {mha_n} mha launches profiled")
+            h2d_ms, h2d_n = _kernel_ms(avgs, "Memcpy HtoD")
+            check(h2d_n == 1, f"AVD_ATTN_FUSED={fused}: {h2d_n} host→device "
+                  "copies in the scoring call's trace, expected the batch's")
             log(f"detector profile AVD_ATTN_FUSED={fused}: device busy "
                 f"{busy[fused]:.3f} ms per scoring call ({VIT_BUCKET}-frame "
                 f"bucket), {n_dev} device kernels and copies, of which the "
-                f"mha kernel {mha_ms:.3f} ms in {mha_n} launches; table in "
-                f"{path}")
+                f"batch's host→device copy {h2d_ms:.3f} ms, kernels "
+                f"{busy[fused] - h2d_ms:.3f} ms, the mha kernel {mha_ms:.3f} "
+                f"ms in {mha_n} launches; table in {path}")
         _set_env(AVD_ATTN_FUSED="1")
 
         # card against CPU on a short clip: logits, not probabilities
@@ -1159,6 +1210,513 @@ def phase_modes(frames):
     return bf_n
 
 
+# ---------------------------------------------------------------------------
+# the file path
+# ---------------------------------------------------------------------------
+
+MEDIA_DIR = os.path.join("build", "chip_smoke_media")
+CORPUS_MP4 = os.path.join("tests", "data", "corpus_v1", "ai",
+                          "clip_00_crf23.mp4")
+FRESH_TREE = os.path.join("build", "fresh_tree")
+SLAB = 64                    # AVD_DETECTOR_SLAB of the streaming phase
+CHUNK_STREAM = 32            # sampled frames per decode chunk (video.py)
+
+
+def write_wav(path, wav, sr=16000):
+    """Mono 16-bit PCM WAV (the waveform is on the 1/32768 grid)."""
+    import wave
+    pcm = np.clip(np.round(wav * 32768.0), -32768, 32767).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
+    return path
+
+
+def decode_routes():
+    """What this host can decode with, in avd_tpu's route order."""
+    import importlib.util
+    import shutil
+    from avd_tpu_torch.native import decode
+    lib = decode.lib()
+    return {"ffprobe": shutil.which("ffprobe"),
+            "ffmpeg": shutil.which("ffmpeg"),
+            "exiftool": shutil.which("exiftool"),
+            "libav": lib is not None, "libav_why": decode.unavailable(),
+            "cv2": importlib.util.find_spec("cv2") is not None}
+
+
+def phase_wav_path():
+    """analyze_path on a WAV the script writes: the audio analyzer on the
+    card against the same call on the CPU."""
+    import torch
+    from avd_tpu_torch import pipeline, schema
+    from avd_tpu_torch.ops import audio_features
+    routes = decode_routes()
+    log(f"decode routes: ffprobe {routes['ffprobe']}, ffmpeg "
+        f"{routes['ffmpeg']}, exiftool {routes['exiftool']}, cv2 "
+        f"{'present' if routes['cv2'] else 'absent'}, libav decode "
+        f"{'built' if routes['libav'] else 'unavailable'}")
+    if not routes["libav"]:
+        why = [x for x in routes["libav_why"].splitlines() if "error" in x]
+        log(f"libav decode unavailable because: "
+            f"{(why or routes['libav_why'].splitlines())[0][:300]}")
+    if routes["cv2"]:
+        import cv2
+        io = [x.strip() for x in cv2.getBuildInformation().splitlines()
+              if x.strip().startswith(("FFMPEG:", "GStreamer:", "avcodec:",
+                                       "avformat:"))]
+        log(f"cv2 {cv2.__version__}, video I/O: {io}")
+    os.makedirs(MEDIA_DIR, exist_ok=True)
+    wav_path = write_wav(os.path.join(MEDIA_DIR, "speech_like_5s.wav"),
+                         speech_like(5.0))
+    seen = []
+    real = audio_features.analyze_waveform
+
+    def spy(wav, sr, device=None):
+        seen.append(torch.device(device).type)
+        return real(wav, sr, device=device)
+
+    out, secs = {}, {}
+    with mock.patch.object(audio_features, "analyze_waveform", spy):
+        for dev in (DEV, "cpu"):
+            t0 = time.perf_counter()
+            out[dev] = pipeline.analyze_path(wav_path, device=dev)
+            secs[dev] = time.perf_counter() - t0
+    check(seen == [DEV, "cpu"], f"the audio block ran on {seen}")
+    g, c = out[DEV], out["cpu"]
+    schema.validate(g)
+    check("audio_error" not in g["hints"], f"audio_error {g['hints']}")
+    check("error" not in g["audio"]["flags_audio"],
+          f"audio fell back: {g['audio']['flags_audio']}")
+    check(g["meta"]["duration"] == 5.0 and g["meta"]["acodec"] == "pcm_s16le",
+          f"WAV meta {g['meta']}")
+    # the video block avd_tpu gives for a WAV: with no cv2 the readers'
+    # import fails (ModuleNotFoundError); with cv2 the container does not
+    # open (the empty result)
+    if routes["cv2"]:
+        want = {"timeline": [], "summary": {}, "timeline_ai": []}
+        check("video_error" not in g["hints"], f"video_error {g['hints']}")
+    else:
+        want = {"timeline": [0.5] * 5,
+                "summary": {"error": "ModuleNotFoundError"},
+                "timeline_ai": [0.5] * 5}
+        check(g["hints"].get("video_error") == "ModuleNotFoundError",
+              f"video_error {g['hints'].get('video_error')}")
+    check(g["video"] == want, f"WAV video block {g['video']}")
+    d_tl = float(np.max(np.abs(np.subtract(g["audio"]["timeline"],
+                                           c["audio"]["timeline"]))))
+    d_ai = abs(np.mean(g["timeline_binned"]) - np.mean(c["timeline_binned"]))
+    check(len(g["audio"]["timeline"]) == len(c["audio"]["timeline"]) == 5
+          and d_tl <= 2e-2, f"audio timeline card vs CPU |Δ| {d_tl}")
+    check(d_ai <= 1e-3 and g["result"]["label"] == c["result"]["label"],
+          f"ai_score card vs CPU |Δ| {d_ai}")
+    for key in ("meta", "hints", "video"):
+        check(g[key] == c[key], f"{key} differs card vs CPU")
+    log(f"analyze_path WAV: audio on {seen[0]}, label "
+        f"{g['result']['label']} ai_score {g['result']['ai_score']}, audio "
+        f"timeline card vs CPU max |Δ| {d_tl:.3g}, |Δai_score| {d_ai:.3g}; "
+        f"video block {g['video']['summary']} as avd_tpu gives it here; "
+        f"wall {secs[DEV]:.3f} s on the card (first call), "
+        f"{secs['cpu']:.3f} s on the CPU")
+    return wav_path, routes, secs[DEV]
+
+
+def _no_decoder():
+    """The decode routes patched away in this process, as on a host with
+    none: no ffprobe, ffmpeg or exiftool, no libav* library, no cv2."""
+    import contextlib
+    import shutil
+    from avd_tpu_torch.native import decode
+    which = shutil.which
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(
+        shutil, "which", lambda name, *a, **k: None
+        if name in ("ffprobe", "ffmpeg", "exiftool") else which(name, *a,
+                                                                **k)))
+    stack.enter_context(mock.patch.object(decode, "lib", lambda: None))
+    had, saved = "cv2" in sys.modules, sys.modules.get("cv2")
+    sys.modules["cv2"] = None  # import cv2 raises ModuleNotFoundError
+    stack.callback(lambda: sys.modules.__setitem__("cv2", saved) if had
+                   else sys.modules.pop("cv2", None))
+    return stack
+
+
+def phase_mp4_path(routes, wav_path):
+    """analyze_path on a corpus mp4 through the routes this host has, card
+    against CPU; then the mp4 and the WAV with the decode routes patched
+    away: the envelope avd_tpu gives on a host with no decoder."""
+    from avd_tpu_torch import pipeline, schema
+    t0 = time.perf_counter()
+    env = pipeline.analyze_path(CORPUS_MP4, device=DEV)
+    secs = time.perf_counter() - t0
+    cpu = pipeline.analyze_path(CORPUS_MP4, device="cpu")
+    schema.validate(env)
+    r = routes
+    log(f"analyze_path mp4 routes taken: probe "
+        f"{'ffprobe' if r['ffprobe'] else 'libav' if r['libav'] else 'cv2' if r['cv2'] else 'none (empty meta)'}"
+        f"; audio {'ffmpeg' if r['ffmpeg'] else 'libav' if r['libav'] else 'none (ffmpeg_convert_failed)'}"
+        f"; video {'libav GOP-skip sampler' if r['libav'] else 'cv2 walk' if r['cv2'] else 'none (ModuleNotFoundError)'}"
+        f"; forensic {'exiftool' if r['exiftool'] else 'BMFF scan'}")
+    check(env["forensic"] == {"c2pa": {"present": False}, "exif_quick": {}},
+          f"forensic block {env.get('forensic')}")
+    for key in ("meta", "hints", "audio", "forensic"):
+        check(env[key] == cpu[key], f"mp4 {key} differs card vs CPU")
+    d_ai = abs(np.mean(env["timeline_binned"])
+               - np.mean(cpu["timeline_binned"]))
+    check(d_ai <= 1e-3 and env["result"]["label"] == cpu["result"]["label"],
+          f"mp4 ai_score card vs CPU |Δ| {d_ai}")
+    decoded = "video_error" not in env["hints"]
+    check(decoded == (routes["libav"] or routes["cv2"]),
+          f"mp4 video_error {env['hints'].get('video_error')} with routes "
+          f"libav {routes['libav']}, cv2 {routes['cv2']}")
+    check("audio_error" not in env["hints"], "mp4 audio_error")
+    log(f"analyze_path mp4: frames decoded: "
+        f"{'yes, ' + str(env['meta']['width']) + 'x' + str(env['meta']['height']) + ' by ' + ('libav' if routes['libav'] else 'cv2') if decoded else 'no (' + env['hints']['video_error'] + ')'}; "
+        f"label {env['result']['label']} ai_score "
+        f"{env['result']['ai_score']}, card vs CPU |Δai_score| {d_ai:.3g}; "
+        f"audio {env['audio']['flags_audio']}; wall {secs:.3f} s")
+
+    with _no_decoder():
+        bare = {p: pipeline.analyze_path(p, device=DEV)
+                for p in (CORPUS_MP4, wav_path)}
+    mp4, wav = bare[CORPUS_MP4], bare[wav_path]
+    for e in (mp4, wav):
+        schema.validate(e)
+        check(e["hints"].get("video_error") == "ModuleNotFoundError",
+              f"no-decoder video_error {e['hints'].get('video_error')}")
+    check(mp4["video"] == {"timeline": [0.5],
+                           "summary": {"error": "ModuleNotFoundError"},
+                           "timeline_ai": [0.5]},
+          f"no-decoder mp4 video block {mp4['video']}")
+    check(mp4["audio"]["flags_audio"] == {"error": "ffmpeg_convert_failed"},
+          f"no-decoder mp4 audio block {mp4['audio']}")
+    check(mp4["meta"]["width"] == 0 and mp4["meta"]["duration"] == 0.0
+          and mp4["meta"]["format_name"] is None,
+          f"no-decoder mp4 meta {mp4['meta']}")
+    check(mp4["forensic"] == env["forensic"], "no-decoder forensic block")
+    check(wav["video"]["timeline"] == [0.5] * 5
+          and "error" not in wav["audio"]["flags_audio"],
+          f"no-decoder WAV {wav['video']} {wav['audio']['flags_audio']}")
+    log(f"analyze_path with the decode routes patched away (no ffprobe, "
+        f"ffmpeg, exiftool, libav or cv2; no frame decoded): mp4 video "
+        f"{mp4['video']}, audio {mp4['audio']['flags_audio']}, meta width "
+        f"{mp4['meta']['width']}, forensic {mp4['forensic']} (BMFF scan); "
+        f"WAV audio analyzed on the card, video_error "
+        f"{wav['hints']['video_error']}")
+    return secs
+
+
+def phase_mp4_1080p(frames, fps=2.0):
+    """A 1080p mp4 written with cv2 (mp4v) from the pan frames at 2 fps
+    (step 1: every frame sampled) through analyze_path on the card with
+    the detector: decode by the cv2 walk, the streaming analyzer, the
+    shipped weights; held to the batch path (AVD_STREAM=0)."""
+    import cv2
+    import torch
+    from avd_tpu_torch import pipeline, schema
+    path = os.path.join(MEDIA_DIR, "pan_1080p_2fps.mp4")
+    t0 = time.perf_counter()
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                         (W_MAIN, H_MAIN))
+    if not vw.isOpened():
+        log("mp4 1080p: cv2 cannot write mp4v here; phase skipped")
+        return None
+    for f in frames:
+        vw.write(f)
+    vw.release()
+    log(f"mp4 1080p: wrote {frames.shape[0]} frames with cv2 in "
+        f"{time.perf_counter() - t0:.2f} s ({os.path.getsize(path)} bytes)")
+    cuda = torch.device(DEV)
+    out, secs, launches = {}, {}, {}
+    _set_env(AVD_DETECTOR="1", AVD_ATTN_FUSED="1", AVD_DETECTOR_PRESET=None,
+             AVD_DETECTOR_CKPT=None, AVD_DETECTOR_BLEND=None,
+             AVD_DETECTOR_SLAB=None)
+    try:
+        for stream in ("1", "0", "1", "0"):
+            _set_env(AVD_STREAM=stream)
+            _reset_counters()
+            t0 = time.perf_counter()
+            res = pipeline.analyze_path(path, device=cuda)
+            secs.setdefault(stream, []).append(time.perf_counter() - t0)
+            launches.setdefault(stream, _counters())
+            out[stream] = res
+    finally:
+        _set_env(AVD_DETECTOR=None, AVD_ATTN_FUSED=None, AVD_STREAM=None)
+    st, ba = out["1"], out["0"]
+    for r in (st, ba):
+        schema.validate(r)
+        for key in ("video_error", "audio_error"):
+            check(key not in r["hints"], f"mp4 1080p {key}: "
+                  f"{r['hints'].get(key)}")
+        check("detector_error" not in r["video"],
+              f"mp4 1080p detector_error {r['video'].get('detector_error')}")
+    n = frames.shape[0]
+    check(st["meta"]["width"] == W_MAIN and st["meta"]["height"] == H_MAIN,
+          f"mp4 1080p meta {st['meta']}")
+    check(len(st["video"]["detector"]["timeline"]) == n,
+          f"{len(st['video']['detector']['timeline'])} frames scored")
+    check(st["video"]["summary"]["dup_density"]
+          == ba["video"]["summary"]["dup_density"], "dup_density")
+    d_tl = float(np.max(np.abs(np.subtract(st["video"]["timeline"],
+                                           ba["video"]["timeline"]))))
+    d_det = float(np.max(np.abs(np.subtract(
+        st["video"]["detector"]["timeline"],
+        ba["video"]["detector"]["timeline"]))))
+    check(d_tl <= 1e-6 and d_det <= 2e-2,
+          f"mp4 1080p stream vs batch |Δ| {d_tl} / detector {d_det}")
+    for mode, ls in launches.items():
+        check(ls["warp_bilinear"] > 0 and ls["box_blur_solve"] > 0
+              and ls["mha"] > 0, f"mp4 1080p AVD_STREAM={mode} launches {ls}")
+    log(f"mp4 1080p through analyze_path on the card (cv2 decode of {n} "
+        f"frames, detector on): streaming {min(secs['1']):.3f} s "
+        f"(runs {', '.join(f'{t:.3f}' for t in secs['1'])}; "
+        f"{n / min(secs['1']):.2f} frames/s), batch {min(secs['0']):.3f} s "
+        f"(runs {', '.join(f'{t:.3f}' for t in secs['0'])}); launches "
+        f"stream {launches['1']}, batch {launches['0']}; heuristic "
+        f"timeline max |Δ| {d_tl:.3g}, detector max |Δ| {d_det:.3g}; label "
+        f"{st['result']['label']} ai_score {st['result']['ai_score']}")
+    return min(secs["1"])
+
+
+def phase_streaming(frames, fb):
+    """The streaming video analyzer on the card, decode replaced by an
+    in-memory source of the frames in chunks of 32, with the detector
+    scoring in slabs of 64; held to analyze_batch on the same frames."""
+    import torch
+    from avd_tpu_torch.analyzers import video as video_an
+    from avd_tpu_torch.ingest import video_reader
+    cuda = torch.device(DEV)
+    meta = clip_meta(W_MAIN, H_MAIN, fb.fps, fb.duration)
+    pulled = []
+
+    def in_memory_chunks(path, meta, chunk=64, copy=True):
+        """Stands in for decode: the frames in chunks of ``chunk``."""
+        pulled.append(chunk)
+        for i in range(0, frames.shape[0], chunk):
+            part = frames[i:i + chunk]
+            yield video_reader.FrameBatch(part, part.shape[0], fb.fps,
+                                          W_MAIN, H_MAIN, fb.duration)
+
+    log(f"streaming: decode replaced by an in-memory source of the "
+        f"{FRAMES_MAIN} 1080p pan frames (a stand-in for decode: no file "
+        f"is read)")
+    _set_env(AVD_DETECTOR="1", AVD_ATTN_FUSED="1", AVD_DETECTOR_PRESET=None,
+             AVD_DETECTOR_CKPT=None, AVD_DETECTOR_BLEND=None,
+             AVD_DETECTOR_SLAB=str(SLAB), AVD_STREAM="1")
+    out, secs, launches = {}, {}, {}
+    try:
+        with mock.patch.object(video_reader, "iter_sampled_chunks",
+                               in_memory_chunks):
+            for mode in ("stream", "batch", "stream", "batch"):
+                _reset_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mode == "stream":
+                    res = video_an.analyze("in-memory:pan", meta, device=cuda)
+                else:
+                    res = video_an.analyze_batch(fb, device=cuda)
+                torch.cuda.synchronize()
+                secs.setdefault(mode, []).append(time.perf_counter() - t0)
+                launches.setdefault(mode, _counters())
+                out[mode] = res
+    finally:
+        _set_env(AVD_DETECTOR=None, AVD_ATTN_FUSED=None,
+                 AVD_DETECTOR_SLAB=None, AVD_STREAM=None)
+    check(pulled == [CHUNK_STREAM, CHUNK_STREAM],
+          f"the streaming path pulled chunks {pulled}")
+    st, ba = out["stream"], out["batch"]
+    for name, r in (("stream", st), ("batch", ba)):
+        check("detector_error" not in r, f"{name}: detector_error "
+              f"{r.get('detector_error')}")
+        check(r["timeline"] is r["timeline_ai"], f"{name}: timeline alias")
+    check(st["summary"]["dup_density"] == ba["summary"]["dup_density"],
+          "dup_density stream vs batch")
+    d_tl = float(np.max(np.abs(np.subtract(st["timeline"], ba["timeline"]))))
+    check(d_tl <= 1e-6, f"heuristic timeline stream vs batch |Δ| {d_tl}")
+    ds, db = st["detector"], ba["detector"]
+    check(len(ds["timeline"]) == len(db["timeline"]) == FRAMES_MAIN,
+          "detector timeline lengths")
+    d_det = float(np.max(np.abs(np.subtract(ds["timeline"],
+                                            db["timeline"]))))
+    check(d_det <= 2e-2, f"detector timeline stream vs batch |Δ| {d_det}")
+    check(ds["weights"] == db["weights"]
+          and ds["weights"].endswith("detector_full+T1.00"),
+          f"weights {ds['weights']}")
+    ls, lb = launches["stream"], launches["batch"]
+    slabs = [SLAB] * (FRAMES_MAIN // SLAB) + \
+        ([FRAMES_MAIN % SLAB] if FRAMES_MAIN % SLAB else [])
+    want_mha = VIT_DEPTH * len(slabs)
+    log(f"streaming launches: stream {ls}, batch {lb}")
+    for name in ("warp_bilinear", "box_blur_solve"):
+        check(ls[name] == lb[name] == 48, f"{name} launched {ls[name]} "
+              f"streaming, {lb[name]} batch; expected 48")
+    check(ls["mha"] == want_mha and lb["mha"] == VIT_DEPTH,
+          f"mha launched {ls['mha']} streaming (want {want_mha}: "
+          f"{len(slabs)} slabs {slabs} x depth), {lb['mha']} batch")
+    best = {m: min(v) for m, v in secs.items()}
+    log(f"streaming vs batch on the card with the detector (slabs of "
+        f"{SLAB}): dup_density {st['summary']['dup_density']} both, "
+        f"heuristic timeline max |Δ| {d_tl:.3g}, detector timeline max "
+        f"|Δ| {d_det:.3g} (bound 2e-2); streaming "
+        f"{FRAMES_MAIN / best['stream']:.2f} frames/s (runs "
+        f"{', '.join(f'{t:.3f}' for t in secs['stream'])} s), batch "
+        f"{FRAMES_MAIN / best['batch']:.2f} frames/s (runs "
+        f"{', '.join(f'{t:.3f}' for t in secs['batch'])} s)")
+    return ls
+
+
+def make_fresh_tree():
+    """A copy of the committed files under build/: ``git archive HEAD``
+    where git can make one, else a copy of the port's files (the package,
+    this script, the corpus); neither holds a build directory or
+    bytecode."""
+    import shutil
+    import tarfile
+    shutil.rmtree(FRESH_TREE, ignore_errors=True)
+    os.makedirs(FRESH_TREE)
+    tar = os.path.join("build", "fresh_tree.tar")
+    if os.path.isdir(".git") and shutil.which("git") and subprocess.run(
+            ["git", "archive", "-o", tar, "HEAD"], capture_output=True,
+            timeout=300).returncode == 0:
+        with tarfile.open(tar) as t:
+            t.extractall(FRESH_TREE, filter="data")
+        os.unlink(tar)
+        return "git archive HEAD"
+    skip = shutil.ignore_patterns("__pycache__", "*.pyc")
+    shutil.copytree("avd_tpu_torch", os.path.join(FRESH_TREE,
+                                                  "avd_tpu_torch"),
+                    ignore=skip)
+    shutil.copytree(os.path.join("tests", "data"),
+                    os.path.join(FRESH_TREE, "tests", "data"))
+    shutil.copy("chip_smoke.py", FRESH_TREE)
+    return "a copy of avd_tpu_torch/, tests/data/ and chip_smoke.py"
+
+
+def phase_cli(wav_path):
+    """The CLI in subprocesses: its first call from a fresh tree (the
+    kernels and the host runtime built there), then ``--jsonl`` on the WAV
+    and the mp4 from this tree."""
+    from avd_tpu_torch import schema
+    how = make_fresh_tree()
+    wav_abs = os.path.abspath(wav_path)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "avd_tpu_torch.analyze",
+                        wav_abs], cwd=FRESH_TREE, capture_output=True,
+                       text=True, timeout=600)
+    first_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"CLI exit {r.returncode}: {r.stderr[-2000:]}")
+    lines = r.stdout.strip().splitlines()
+    check(len(lines) == 1, f"CLI printed {len(lines)} lines")
+    env = json.loads(lines[0])
+    schema.validate(env)
+    check("audio_error" not in env["hints"], "CLI audio_error")
+    built = os.path.isdir(os.path.join(FRESH_TREE, "build",
+                                       "avd_tpu_torch_kernels"))
+    check(built, "the CLI's first call built no kernels in the fresh tree")
+    log(f"CLI first call (fresh tree from {how}; builds the CUDA kernels "
+        f"and the host runtime there, warms every window bucket): exit 0, "
+        f"one envelope, label {env['result']['label']}, {first_s:.2f} s "
+        f"wall")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "avd_tpu_torch.analyze",
+                        "--jsonl", wav_abs, os.path.abspath(CORPUS_MP4)],
+                       capture_output=True, text=True, timeout=600)
+    jsonl_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"CLI --jsonl exit {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    lines = [json.loads(x) for x in r.stdout.strip().splitlines()]
+    check(len(lines) == 2 and all("response" in x for x in lines),
+          f"CLI --jsonl printed {r.stdout[:500]}")
+    for x in lines:
+        schema.validate(x["response"])
+    log(f"CLI --jsonl on the WAV and the mp4: exit 0, two lines, labels "
+        f"{[x['response']['result']['label'] for x in lines]}, "
+        f"{jsonl_s:.2f} s wall (kernels found built)")
+    return first_s
+
+
+def scoring_profile(resized, table_path):
+    """One warm AVD_ATTN_FUSED=1 scoring call under the profiler: device
+    busy ms, device kernels and copies, and the rows by kernel."""
+    import torch
+    from avd_tpu_torch.models import scoring
+    cuda = torch.device(DEV)
+    scoring.detector_timeline_resized(resized, device=cuda)  # warm
+    busy, n_dev, avgs = device_profile(
+        lambda: scoring.detector_timeline_resized(resized, device=cuda))
+    os.makedirs(os.path.dirname(table_path), exist_ok=True)
+    with open(table_path, "w") as f:
+        f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
+    rows = {e.key: [e.count, round(e.self_device_time_total / 1e3, 4)]
+            for e in avgs
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")}
+    h2d_ms, h2d_n = _kernel_ms(avgs, "Memcpy HtoD")
+    return {"busy_ms": busy, "launches": n_dev, "h2d_ms": h2d_ms,
+            "h2d_copies": h2d_n, "rows": rows}
+
+
+def scoring_probe(out_dir):
+    """Entry for a subprocess: the fused scoring call on the 145 pan
+    frames, resized as the detector path resizes them; prints one JSON
+    line and writes the profiler table under ``out_dir``."""
+    import torch
+    from avd_tpu_torch.models import scoring
+    os.environ.update(AVD_DETECTOR="1", AVD_ATTN_FUSED="1")
+    frames = pan_frames(FRAMES_MAIN, H_MAIN, W_MAIN)
+    resized = scoring.resize_frames(
+        frames, scoring.input_size(torch.device(DEV)))
+    tag = "fresh" if os.path.abspath(".").endswith(FRESH_TREE) else "tree"
+    res = scoring_profile(resized, os.path.join(
+        out_dir, f"torch_profile_scoring_subprocess_{tag}.txt"))
+    res["weights"] = scoring._bundle(torch.device(DEV))[3]
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def phase_fault3(frames):
+    """The fused scoring call's device work: in this process, in a
+    subprocess from this tree, and in a subprocess from the fresh tree."""
+    import torch
+    from avd_tpu_torch.models import scoring
+    out_dir = os.path.abspath("chiprun_out")
+    _set_env(AVD_DETECTOR="1", AVD_ATTN_FUSED="1", AVD_DETECTOR_PRESET=None,
+             AVD_DETECTOR_CKPT=None, AVD_DETECTOR_SLAB=None)
+    try:
+        resized = scoring.resize_frames(frames,
+                                        scoring.input_size(torch.device(DEV)))
+        runs = {"in-process": scoring_profile(resized, os.path.join(
+            out_dir, "torch_profile_scoring_inprocess.txt"))}
+    finally:
+        _set_env(AVD_DETECTOR=None, AVD_ATTN_FUSED=None)
+    probe = ("import sys; sys.path.insert(0, '.'); import chip_smoke; "
+             f"sys.exit(chip_smoke.scoring_probe({out_dir!r}))")
+    for name, cwd in (("subprocess, this tree", "."),
+                      ("subprocess, fresh tree", FRESH_TREE)):
+        r = subprocess.run([sys.executable, "-c", probe], cwd=cwd,
+                           capture_output=True, text=True, timeout=600)
+        check(r.returncode == 0, f"scoring probe ({name}) exit "
+              f"{r.returncode}: {r.stderr[-2000:]}")
+        runs[name] = json.loads(r.stdout.strip().splitlines()[-1])
+    base = runs["in-process"]
+    with open(os.path.join(out_dir, "scoring_fault3.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    for name, res in runs.items():
+        extra = {k[:60]: v for k, v in res["rows"].items()
+                 if base["rows"].get(k, [0])[0] != v[0]}
+        log(f"fault 3, {name}: device busy {res['busy_ms']:.3f} ms per "
+            f"scoring call, {res['launches']} device kernels and copies, of "
+            f"which the batch's pageable host→device copy "
+            f"{res['h2d_ms']:.3f} ms ({154.1 / max(res['h2d_ms'], 1e-9):.2f} "
+            f"GB/s), kernels {res['busy_ms'] - res['h2d_ms']:.3f} ms; rows "
+            f"whose count differs from in-process: {extra or 'none'}")
+        check(res["h2d_copies"] == 1, f"fault 3, {name}: "
+              f"{res['h2d_copies']} host→device copies traced, expected 1")
+    return runs
+
+
 def kernel_entry(name, source, replaces, rows, max_err, launches):
     ms = ROUNDS * sum(r[1] for r in rows)
     plain = ROUNDS * sum(r[2] for r in rows)
@@ -1226,6 +1784,13 @@ def main():
         w16_rows, w16_err, b16_rows, b16_err = phase_bf16_kernels(
             gen, warp_rows, blur_rows)
         bf16_launches = phase_modes(frames)
+        wav_path, routes, wav_s = phase_wav_path()
+        mp4_s = phase_mp4_path(routes, wav_path)
+        if routes["cv2"]:
+            phase_mp4_1080p(frames)
+        stream_launches = phase_streaming(frames, fb)
+        cli_s = phase_cli(wav_path)
+        phase_fault3(frames)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1254,12 +1819,16 @@ def main():
                      "avd_tpu/ops/pallas/blur_solve.py:97", b16_rows,
                      b16_err, bf16_launches["box_blur_solve_bf16"]),
     ]
+    for entry in kernels:
+        entry["streaming_launches"] = stream_launches.get(entry["name"], 0)
     # what the fused round replaces: warp kernel + PyTorch update +
     # blur+solve kernel, same unit
     kernels[2]["unfused_sequence_ms"] = ROUNDS * sum(
         r[6] for r in iter_rows[:len(LEVELS)])
     kernels[2]["tail_per_level_ms"] = {str(r[0]): r[1]
                                        for r in iter_rows[len(LEVELS):]}
+    log(f"file path: analyze_path WAV {wav_s:.3f} s, mp4 {mp4_s:.3f} s "
+        f"(first calls), CLI first call {cli_s:.2f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

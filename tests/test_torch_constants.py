@@ -124,3 +124,85 @@ def test_border_scale():
 def test_detector_presets(preset):
     assert sorted(tdetector.PRESETS) == sorted(jdetector.PRESETS)
     assert tdetector.PRESETS[preset] == jdetector.PRESETS[preset]
+
+
+# ---------------------------------------------------------------------------
+# the file path's copied tables and builders
+# ---------------------------------------------------------------------------
+
+def test_bmff_tag_tables():
+    from avd_tpu.ingest import bmff as jbmff
+    from avd_tpu_torch.ingest import bmff as tbmff
+    for name in ("_CONTAINERS", "_META", "_C2PA_UUID", "_UDTA_KEYS",
+                 "_QT_KEYS", "_MAX_METADATA_BOX", "_MAX_DEPTH"):
+        assert getattr(tbmff, name) == getattr(jbmff, name), name
+
+
+def test_meta_keys_and_timeouts():
+    from avd_tpu.analyzers import meta as jmeta
+    from avd_tpu.ingest import audio_reader as jaudio
+    from avd_tpu.ingest import probe as jprobe
+    from avd_tpu_torch.analyzers import meta as tmeta
+    from avd_tpu_torch.ingest import audio_reader as taudio
+    from avd_tpu_torch.ingest import probe as tprobe
+    assert tmeta._DEVICE_KEYS == jmeta._DEVICE_KEYS
+    assert tmeta._EXIFTOOL_TIMEOUT_S == jmeta._EXIFTOOL_TIMEOUT_S
+    assert tprobe._FFPROBE_TIMEOUT_S == jprobe._FFPROBE_TIMEOUT_S
+    assert tprobe._empty_meta() == jprobe._empty_meta()
+    assert list(tprobe._empty_meta()) == list(jprobe._empty_meta())
+    assert taudio.TARGET_SR == jaudio.TARGET_SR
+    for code in (0, -1, 0x7634706D, 0x31637661, 0x20202020):
+        assert tprobe._fourcc_name(code) == jprobe._fourcc_name(code)
+
+
+@pytest.mark.parametrize("duration", [0.0, 0.4, 0.5, 1.5, 2.5, 7.2, None])
+def test_neutral_results(duration):
+    from avd_tpu import pipeline as jpipeline
+    from avd_tpu.analyzers import audio as jaudio
+    from avd_tpu.analyzers import video as jvideo
+    from avd_tpu_torch import pipeline as tpipeline
+    from avd_tpu_torch.analyzers import audio as taudio
+    from avd_tpu_torch.analyzers import video as tvideo
+    meta = {"duration": duration}
+    exc = TimeoutError()
+    assert tpipeline._neutral_audio(meta, exc) == \
+        jpipeline._neutral_audio(meta, exc)
+    assert tpipeline._neutral_video(meta, exc) == \
+        jpipeline._neutral_video(meta, exc)
+    assert taudio._neutral(meta, "x") == jaudio._neutral(meta, "x")
+    assert tvideo._empty_result() == jvideo._empty_result()
+
+
+@pytest.mark.parametrize("fps", [0.0, 1.0, 2.0, 5.0, 12.0, 23.976, 25.0,
+                                 29.97, 30.0, 59.94, 60.0, 120.0])
+def test_sampling_step(fps):
+    from avd_tpu.ingest import video_reader as jreader
+    from avd_tpu_torch.ingest import video_reader as treader
+    assert treader.sampling_step(fps) == jreader.sampling_step(fps)
+
+
+@pytest.mark.parametrize("chunk", [48, 24, 7, 1])
+def test_window_buckets(chunk):
+    from avd_tpu.ops import video_features as jvf
+    from avd_tpu_torch.ops import video_features as tvf
+    assert tvf._window_buckets(chunk) == jvf._window_buckets(chunk)
+    for n in range(1, chunk + 3):
+        assert tvf._bucket_len(n, chunk) == jvf._bucket_len(n, chunk)
+    assert tvf._DEFAULT_CHUNK == jvf._DEFAULT_CHUNK
+
+
+def test_cli_and_oracle_tables():
+    from avd_tpu import analyze as jcli
+    from avd_tpu.oracle import video_ref as jref
+    from avd_tpu_torch import analyze as tcli
+    from avd_tpu_torch.oracle import video_ref as tref
+    assert tcli._VIDEO_EXTS == jcli._VIDEO_EXTS
+    assert tref.FARNEBACK_PARAMS == jref.FARNEBACK_PARAMS
+
+
+def test_native_decode_structs():
+    from avd_tpu.native import decode as jdecode
+    from avd_tpu_torch.native import decode as tdecode
+    for name in ("MediaInfoStruct", "ProbeInfoStruct"):
+        assert getattr(tdecode, name)._fields_ == \
+            getattr(jdecode, name)._fields_, name

@@ -157,15 +157,23 @@ def test_converter_round_trips_through_npz(tmp_path):
     path = str(tmp_path / convert.PARAMS_FILE)
     convert.save_npz(path, params)
     back = convert.load_npz(path, cfg)
+
+    def stored(k, v):  # the bf16 operands are stored as bf16 bit patterns
+        return v.bfloat16().float() if k in tdet._BF16 else v
+
     assert sorted(back) == sorted(params)
     for k, v in params.items():
         if k != "layers":
-            assert torch.equal(back[k], v), k
+            assert torch.equal(back[k], stored(k, v)), k
     assert len(back["layers"]) == cfg.depth
     for lp, lb in zip(params["layers"], back["layers"]):
         assert sorted(lp) == sorted(lb)
         for k in lp:
-            assert torch.equal(lb[k], lp[k]), k
+            assert torch.equal(lb[k], stored(k, lp[k])), k
+    # rounding at storage is the rounding the forward does at each use
+    a = tdet.cast_for_inference(params, "cpu")
+    b = tdet.cast_for_inference(back, "cpu")
+    assert all(torch.equal(a[k], b[k]) for k in a if k != "layers")
 
 
 def test_converter_checks_the_tree_against_the_config(tmp_path):

@@ -16,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from avd_tpu_torch import analyze as cli
 from avd_tpu_torch import device as device_mod
 from avd_tpu_torch import pipeline
+from avd_tpu_torch.analyzers import audio as audio_an
 from avd_tpu_torch.analyzers import video as video_an
 from avd_tpu_torch.ingest import video_reader
 from avd_tpu_torch.models import detector, scoring
@@ -43,7 +45,14 @@ assert not bad, bad
 for n in ("avd_tpu_torch.models", "avd_tpu_torch.models.detector",
           "avd_tpu_torch.models.convert", "avd_tpu_torch.models.scoring",
           "avd_tpu_torch.ops.kernels.attention",
-          "avd_tpu_torch.ops.kernels.flow_iter"):
+          "avd_tpu_torch.ops.kernels.flow_iter",
+          "avd_tpu_torch.analyze", "avd_tpu_torch.utils",
+          "avd_tpu_torch.utils.metrics", "avd_tpu_torch.ingest.bmff",
+          "avd_tpu_torch.ingest.probe", "avd_tpu_torch.ingest.audio_reader",
+          "avd_tpu_torch.ingest.video_reader",
+          "avd_tpu_torch.analyzers.meta", "avd_tpu_torch.analyzers.forensic",
+          "avd_tpu_torch.analyzers.audio", "avd_tpu_torch.native.decode",
+          "avd_tpu_torch.oracle.video_ref"):
     assert n in names, n
 """
 
@@ -53,7 +62,7 @@ def test_port_imports_no_jax_and_no_avd_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 26, r.stdout
+    assert n_modules >= 37, r.stdout
 
 
 def _frames():
@@ -88,6 +97,14 @@ _ENTRY_POINTS = {
     "analyze_decoded": lambda: pipeline.analyze_decoded(
         video_reader.FrameBatch(_frames(), 2, 30.0, 64, 64, 1.0),
         np.zeros(16000, np.float32), 16000, {}),
+    "analyze_path": lambda: pipeline.analyze_path("/nonexistent.wav"),
+    "analyzers.audio.analyze":
+        lambda: audio_an.analyze("/nonexistent.wav", {}),
+    "analyzers.video.analyze":
+        lambda: video_an.analyze("/nonexistent.mp4", {}),
+    "warm_device": lambda: video_features.warm_device(),
+    "scoring.clip_window": lambda: scoring.clip_window(),
+    "cli": lambda: cli.main(["/nonexistent.wav"]),
 }
 
 

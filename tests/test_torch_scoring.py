@@ -142,7 +142,10 @@ def test_unknown_family_and_preset_raise(env):
         tscoring._bundle("cpu")
 
 
-def test_bundle_defaults(env):
+def test_bundle_defaults(env, tmp_path):
+    # no shipped checkpoint: the random-init case, reached as avd_tpu's
+    # rule reaches it (the committed default is in test_torch_weights.py)
+    env.setattr(tscoring, "_WEIGHTS_DIR", str(tmp_path))
     env.setenv("AVD_DETECTOR_PRESET", "small")
     cfg, params, probs, source = tscoring._bundle("cpu")
     assert source == "random_init"
@@ -207,7 +210,8 @@ def test_disabled_or_empty_gives_none(env):
                                               device="cpu") is None
 
 
-def test_score_prepped_pads_5_to_8_and_returns_5(env):
+def test_score_prepped_pads_5_to_8_and_returns_5(env, tmp_path):
+    env.setattr(tscoring, "_WEIGHTS_DIR", str(tmp_path))  # random init
     env.setenv("AVD_DETECTOR_PRESET", "small")
     cfg, params, probs, source = tscoring._bundle("cpu")
     seen = []
