@@ -54,8 +54,12 @@ def _backend() -> str:
     return os.getenv("AVD_BACKEND", "jax")
 
 
-def analyze(path: str, meta: dict, device=None) -> Dict[str, Any]:
-    """Analyze the video of ``path`` on ``device`` (default CUDA)."""
+def analyze(path: str, meta: dict, device=None,
+            batcher=None) -> Dict[str, Any]:
+    """Analyze the video of ``path`` on ``device`` (default CUDA).
+    ``batcher`` (serving's cross-request ``WindowBatcher``, or None) runs
+    the streaming path's windows; the batch path runs its windows
+    in-process."""
     dev = device_mod.resolve(device)
     # features needing the full decoded batch (freq forensics, change
     # gating) use the batch path; plain analysis — the detector included —
@@ -64,7 +68,7 @@ def analyze(path: str, meta: dict, device=None) -> Dict[str, Any]:
     whole_batch_features = cfg.freq_forensics or cfg.change_gate
     if _backend() != "oracle" and os.getenv("AVD_STREAM", "1") == "1" \
             and not whole_batch_features:
-        return _analyze_streaming(path, meta, dev)
+        return _analyze_streaming(path, meta, dev, batcher)
     fb = video_reader.read_sampled(path, meta)
     if fb is None:
         return _empty_result()
@@ -131,7 +135,8 @@ class _DetAccum:
         return {"timeline": self._timeline, "weights": self._weights}
 
 
-def _analyze_streaming(path: str, meta: dict, device) -> Dict[str, Any]:
+def _analyze_streaming(path: str, meta: dict, device,
+                       batcher=None) -> Dict[str, Any]:
     """File analysis with chunked decode feeding the device windows as
     they fill: memory stays bounded for long or 4K clips.  With the
     detector on, each chunk is resized to the model's input size as it
@@ -148,8 +153,8 @@ def _analyze_streaming(path: str, meta: dict, device) -> Dict[str, Any]:
             yield fb.frames
 
     try:
-        feats = video_features.compute_features_streaming(chunks(),
-                                                          device=device)
+        feats = video_features.compute_features_streaming(
+            chunks(), device=device, batcher=batcher)
     except Exception:
         # as avd_tpu (video.py:149-156): any failure mid-stream — a native
         # decode error, a kernel that fails to build or launch — restarts

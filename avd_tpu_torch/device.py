@@ -25,3 +25,13 @@ def resolve(device=None) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def pinned(device=None) -> torch.device:
+    """``resolve(device)`` with its index: threads that run work for a
+    caller (the analyzers, the window batcher) must not depend on their
+    own current device."""
+    dev = resolve(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -24,8 +24,11 @@ def average_hash_bits(small_gray: torch.Tensor) -> torch.Tensor:
 
 
 def consecutive_hamming(bits: torch.Tensor) -> torch.Tensor:
-    """[N, K] bool → [N-1] int32 Hamming distances between neighbors."""
-    return (bits[1:] != bits[:-1]).sum(dim=-1).to(torch.int32)
+    """[..., N, K] bool → [..., N-1] int32 Hamming distances between
+    neighbors along N: a stack of windows pairs frames only inside each
+    window."""
+    return (bits[..., 1:, :] != bits[..., :-1, :]).sum(dim=-1) \
+        .to(torch.int32)
 
 
 def duplicate_count(bits: torch.Tensor,

@@ -7,14 +7,18 @@ checkout, at first use; the digest covers the source, every header
 an unchanged one loads the cached library.  ``build_all`` starts one nvcc
 per source at once and waits for all; what nvcc printed (``-Xptxas -v``:
 registers, shared memory and spills of each kernel) stays in
-``BUILD_LOGS``.
+``BUILD_LOGS``.  Builds hold an exclusive lock on ``BUILD_DIR/.lock``, so
+processes that start together on a fresh tree (the serving workers) run
+each nvcc once: the others wait and load what it wrote.
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no nvcc.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -64,12 +68,22 @@ def lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive across processes; the kernel drops it if one dies."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        yield
+
+
 def _start(name: str):
-    """Start nvcc for one source; None when its library is already built."""
+    """Start nvcc for one source; None when its library is already built
+    (checked under ``_build_lock``: another process may have built it
+    while this one waited)."""
     out = lib_path(name)
     if os.path.exists(out):
         return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -91,7 +105,7 @@ def _finish(name: str, started) -> None:
 def build_all(names=SOURCES) -> float:
     """Build every source in parallel (one nvcc each); returns seconds."""
     t0 = time.perf_counter()
-    with _lock:
+    with _lock, _build_lock():
         started = [(n, _start(n)) for n in names]
         for n, s in started:
             _finish(n, s)
@@ -105,7 +119,9 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.get(name)
             if lib is None:
-                _finish(name, _start(name))
+                if not os.path.exists(lib_path(name)):
+                    with _build_lock():
+                        _finish(name, _start(name))
                 lib = ctypes.CDLL(lib_path(name))
                 _libs[name] = lib
     return lib

@@ -24,7 +24,11 @@ Two preprocessing placements (``AVD_PREP``, ``config.prep_mode``):
 Clips longer than the chunk stream through windows with a one-frame
 lead-in; tails round up to quarter-chunk buckets.  Window results stay on
 the device and all of them come back in one device→host fetch at the end,
-so host work on window k+1 overlaps the device work of window k.
+so host work on window k+1 overlaps the device work of window k.  A
+caller that passes a batcher to ``compute_features_streaming`` (serving
+with ``AVD_BATCH_WINDOW_MS > 0``, ``serve/batching.py``) has every window
+run there instead: the batcher stacks the full host-prep windows of
+concurrent requests into one ``run_prep_windows`` call.
 
 ``AVD_CHANGE_GATE=1`` (``compute_features`` only) hashes on the host and
 runs the flow only for the pairs whose 320² planes changed
@@ -120,13 +124,22 @@ def _flow_stats(prev: torch.Tensor, cur: torch.Tensor, cfg):
 
 def _prep_body(flow_u8: torch.Tensor, hash_u8: torch.Tensor, cfg):
     """Host-prep variant: pair features from pre-resized windows
-    ([N, 320, 320] and [N, 32, 32] uint8) → (ham [N-1] i32, fmean [N-1],
-    fvar [N-1])."""
-    bits = hashing.average_hash_bits(hash_u8.float())
-    ham = hashing.consecutive_hamming(bits)
+    ([..., N, 320, 320] and [..., N, 32, 32] uint8, any leading stack of
+    windows) → (ham [..., N-1] i32, fmean [..., N-1], fvar [..., N-1]).
+
+    Pairs are formed inside each window (``prev = f[..., :-1]``, ``cur =
+    f[..., 1:]``, then flattened): the last frame of one window is never
+    paired with the first of the next.  The flow runs once over every
+    pair of the stack."""
+    lead, n = flow_u8.shape[:-3], flow_u8.shape[-3]
+    bits = hashing.average_hash_bits(
+        hash_u8.reshape(-1, _HASH_SIZE, _HASH_SIZE).float())
+    ham = hashing.consecutive_hamming(bits.view(*lead, n, -1))
     fs = flow_u8.float()
-    fmean, fvar = _flow_stats(fs[:-1], fs[1:], cfg)
-    return ham, fmean, fvar
+    prev = fs[..., :-1, :, :].reshape(-1, _FLOW_SIZE, _FLOW_SIZE)
+    cur = fs[..., 1:, :, :].reshape(-1, _FLOW_SIZE, _FLOW_SIZE)
+    fmean, fvar = _flow_stats(prev, cur, cfg)
+    return ham, fmean.view(*lead, n - 1), fvar.view(*lead, n - 1)
 
 
 def _feature_body(gray_u8: torch.Tensor, cfg):
@@ -160,20 +173,32 @@ def _put(host: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
+def run_prep_windows(w320s: np.ndarray, w32s: np.ndarray,
+                     device: torch.device, cfg=None) -> torch.Tensor:
+    """Enqueue m host-prep windows of n frames at once ([m, n, 320, 320]
+    and [m, n, 32, 32] uint8): one u8 host→device copy, then one
+    ``_prep_body`` whose flow runs over all m·(n−1) pairs, so each kernel
+    launch serves every window.  Returns [m, 3·(n−1)] float32 on the
+    device, row i = ham ‖ fmean ‖ fvar of window i; nothing is fetched.
+    The counterpart of ``_compiled_prep_stacked_packed``."""
+    device = device_mod.resolve(device)
+    cfg = cfg or config_mod.get_config()
+    m, n = w320s.shape[:2]
+    packed = _put(np.concatenate([w320s.reshape(-1), w32s.reshape(-1)]),
+                  device)
+    n_flow = m * n * _FLOW_SIZE * _FLOW_SIZE
+    f = packed[:n_flow].view(m, n, _FLOW_SIZE, _FLOW_SIZE)
+    h8 = packed[n_flow:].view(m, n, _HASH_SIZE, _HASH_SIZE)
+    ham, fmean, fvar = _prep_body(f, h8, cfg)
+    return torch.cat([ham.float(), fmean, fvar], dim=1)
+
+
 def run_prep_window(w320: np.ndarray, w32: np.ndarray,
                     device: torch.device, cfg=None) -> torch.Tensor:
-    """Enqueue one host-prep window: one u8 host→device copy, then the
-    pair features.  Returns ham ‖ fmean ‖ fvar as one float32 device
-    vector; nothing is fetched."""
-    cfg = cfg or config_mod.get_config()
-    n = w320.shape[0]
-    packed = _put(np.concatenate([w320.reshape(-1), w32.reshape(-1)]),
-                  device)
-    n_flow = n * _FLOW_SIZE * _FLOW_SIZE
-    f = packed[:n_flow].view(n, _FLOW_SIZE, _FLOW_SIZE)
-    h8 = packed[n_flow:].view(n, _HASH_SIZE, _HASH_SIZE)
-    ham, fmean, fvar = _prep_body(f, h8, cfg)
-    return torch.cat([ham.float(), fmean, fvar])
+    """Enqueue one host-prep window ([n, 320, 320] and [n, 32, 32] uint8):
+    ``run_prep_windows`` with m = 1.  Returns ham ‖ fmean ‖ fvar as one
+    float32 device vector; nothing is fetched."""
+    return run_prep_windows(w320[None], w32[None], device, cfg)[0]
 
 
 def run_window(window_gray_u8: np.ndarray, device: torch.device, cfg=None):
@@ -244,17 +269,19 @@ def _pad_window(window: np.ndarray, target: int) -> np.ndarray:
 def _fetch_windows(pend, with_tex: bool, sinks) -> None:
     """The one device→host fetch: every window's result vector at once,
     then split into the feature lists.  ``pend`` holds (vector, valid,
-    is_first, window length); a vector is [tex ‖] ham ‖ fmean ‖ fvar."""
-    fetched = torch.cat([p[0] for p in pend]).cpu().numpy()
-    off = 0
-    for _, valid, is_first, target in pend:
+    is_first, window length); a vector is [tex ‖] ham ‖ fmean ‖ fvar,
+    either on the device or, from the cross-request batcher, a future of
+    a host array (resolved here, after the device vectors are fetched)."""
+    on_device = [p[0] for p in pend if isinstance(p[0], torch.Tensor)]
+    fetched = iter(torch.cat(on_device).cpu().split(
+        [v.numel() for v in on_device]) if on_device else ())
+    for vec, valid, is_first, target in pend:
+        vec = next(fetched).numpy() if isinstance(vec, torch.Tensor) \
+            else vec.result()
         k = target - 1
         tex = None
         if with_tex:
-            tex = fetched[off:off + target]
-            off += target
-        vec = fetched[off:off + 3 * k]
-        off += 3 * k
+            tex, vec = vec[:target], vec[target:]
         _window_slices(0 if is_first else 1, valid, tex, vec[:k],
                        vec[k:2 * k], vec[2 * k:], sinks)
 
@@ -333,7 +360,8 @@ def _compute_features_gated(feats: Dict, s320: np.ndarray, s32: np.ndarray,
 # entry points
 # ---------------------------------------------------------------------------
 
-def compute_features_streaming(chunk_iter, device=None) -> Dict:
+def compute_features_streaming(chunk_iter, device=None,
+                               batcher=None) -> Dict:
     """Consume an iterator of [k, H, W, 3] BGR chunks.
 
     Windows are enqueued on the device as they fill, so host work on the
@@ -341,12 +369,16 @@ def compute_features_streaming(chunk_iter, device=None) -> Dict:
     ``compute_features`` on the concatenated frames in host-prep mode (the
     windows do not depend on how the frames were chunked); in device-prep
     mode the tail window takes a bucket here and the full chunk there.
+    ``batcher`` (a ``serve.batching.WindowBatcher`` or None) runs every
+    window instead of this thread: host-prep windows through
+    ``submit_prep``, device-prep ones through ``submit``.
     """
     dev = device_mod.resolve(device)
     cfg = config_mod.get_config()
     host_mode = cfg.prep_mode == "host"
     chunk = _DEFAULT_CHUNK if host_mode else None
-    pend: list = []      # (device result vector, valid, is_first, target)
+    pend: list = []      # (device vector or batcher future, valid,
+    #                       is_first, target)
     tex_parts: list = []
     held = None          # host planes or gray not yet dispatched
     prev_last = None     # lead-in frames of the next window
@@ -360,7 +392,12 @@ def compute_features_streaming(chunk_iter, device=None) -> Dict:
             tuple(p[0] for p in parts)
         windows = [_pad_window(np.concatenate([ld[None], p]), target)
                    for ld, p in zip(leads, parts)]
-        if host_mode:
+        if batcher is not None:
+            # a future of the host vector: full host-prep windows of
+            # concurrent requests share one stacked flow
+            vec = (batcher.submit_prep(*windows, device=dev) if host_mode
+                   else batcher.submit(windows[0], dev))
+        elif host_mode:
             vec = run_prep_window(*windows, device=dev, cfg=cfg)
         else:
             vec = _device_window_vector(run_window(windows[0], dev, cfg))

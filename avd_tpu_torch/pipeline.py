@@ -27,7 +27,6 @@ import traceback
 from typing import Any, Dict, Optional
 
 import numpy as np
-import torch
 
 from avd_tpu_torch import device as device_mod
 from avd_tpu_torch.analyzers import audio as audio_an
@@ -91,13 +90,13 @@ def _neutral_video(meta: dict, exc: BaseException) -> Dict[str, Any]:
             "timeline_ai": [0.5] * tlen}
 
 
-def _spawn_safe(fn, path: str, meta: dict, device):
+def _spawn_safe(fn, *args):
     """Start an analyzer on its own daemon thread.  Spawn failure (thread
     exhaustion under load) is part of the error-isolation contract — it
     must produce the neutral fallback, not fail the request — so it is
     returned as a value for _finish_safe to translate."""
     try:
-        return _DaemonTask(fn, path, meta, device)
+        return _DaemonTask(fn, *args)
     except Exception as e:  # e.g. RuntimeError("can't start new thread")
         return e
 
@@ -135,20 +134,13 @@ def _analyzer_timeout(cfg) -> float:
     return base
 
 
-def _pinned(dev: torch.device) -> torch.device:
-    """``dev`` with its index: the analyzer threads must not depend on the
-    current device of the thread they run on."""
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def analyze_path(path: str, source_url: Optional[str] = None,
                  resolved_url: Optional[str] = None,
-                 device=None) -> Dict[str, Any]:
+                 device=None, batcher=None) -> Dict[str, Any]:
     """Full analysis of a media file on ``device`` (default CUDA) →
-    response dict (api.py:142-170)."""
-    dev = _pinned(device_mod.resolve(device))
+    response dict (api.py:142-170).  ``batcher``: serving's cross-request
+    window batcher (``serve/batching.py``), or None to run in-process."""
+    dev = device_mod.pinned(device)
     cfg = get_config()
     timer = StageTimer()
     COUNTERS.inc("requests")
@@ -160,7 +152,7 @@ def analyze_path(path: str, source_url: Optional[str] = None,
     with timer.stage("analyzers"):
         deadline = time.monotonic() + _analyzer_timeout(cfg)
         audio_t = _spawn_safe(audio_an.analyze, path, meta, dev)
-        video_t = _spawn_safe(video_an.analyze, path, meta, dev)
+        video_t = _spawn_safe(video_an.analyze, path, meta, dev, batcher)
         audio, a_hint = _finish_safe(audio_t, meta, _neutral_audio,
                                      "audio_error", "audio_traceback",
                                      deadline)

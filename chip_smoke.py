@@ -104,7 +104,34 @@ Phases, in order; any failure exits non-zero before the result line:
 19. the fused scoring call (``AVD_ATTN_FUSED=1``, 256-frame bucket) under
     the profiler in this process, in a subprocess from this tree and in a
     subprocess from the fresh tree: launches and device-busy ms of each,
-    the rows that differ, and the tables under ``chiprun_out/``.
+    the rows that differ, and the tables under ``chiprun_out/``;
+20. stacked windows: ``run_prep_windows`` on m = 1, 2, 4, 8 of the pan
+    frames' 49-frame host-prep windows against m ``run_prep_window`` calls
+    (Hamming exact, flow mean rtol 1e-4, variance rtol 1e-3, max |Δ|
+    printed); warp and blur+solve launched as often for one stacked call
+    (m·48 pairs) as for one window; wall ms of both;
+21. a real master, ``python -m avd_tpu_torch.serve.master --device cuda``
+    with ``WEB_CONCURRENCY=2`` on a free port (log in
+    ``chiprun_out/serve_recycle.log``): both workers print ``warmup
+    complete`` (``warmup skipped`` or a traceback fails), ``/readyz``
+    names the card, the WAV and the 1080p mp4 posted with the port's
+    ``Client`` equal the in-process ``analyze_path`` envelopes (key order,
+    label, |Δai_score| <= 1e-3, heuristic timeline within 1e-6, no
+    ``video_error``/``audio_error``/``detector_error``), then with
+    ``GUNICORN_MAX_REQUESTS=3`` a zero-downtime recycle whose replacement,
+    forked while its sibling holds a CUDA context, warms and serves;
+22. cross-request batching: one worker, ``GUNICORN_THREADS=4``,
+    ``AVD_BATCH_WINDOW_MS=100``: 4 concurrent uploads of the 1080p mp4
+    (``batch_fused_jobs`` >= 2, each envelope equal to the solo one), 4
+    sequential; then, with batching on and off, two rounds of 16 uploads
+    from 1 client and 32 from 4, every envelope held to the solo one:
+    requests/s, p50 and max latency over the rounds
+    (``chiprun_out/serving.json``);
+23. the trace route: the in-process app with ``DEBUG=1``,
+    ``/debug/trace/start``, one upload of the 1080p mp4, ``/stop``: the
+    Chrome trace names ``warp_bilinear_kernel``, and the request launched
+    warp and blur+solve 48 times each (``served_launches`` in the kernels
+    line).
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It needs the repository beside it
@@ -1717,6 +1744,399 @@ def phase_fault3(frames):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+MP4_1080P = os.path.join(MEDIA_DIR, "pan_1080p_2fps.mp4")
+STACK_MS = (1, 2, 4, 8)      # batching._BUCKETS: the stacked-window ladder
+TIMELINE_EQ = 1e-6           # "equal" heuristic timelines (phase 16's bound)
+
+
+def _wall_ms(fn, reps=3):
+    """Host-clock ms of ``fn()`` to a synchronized end, one per run."""
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_stacked_windows(frames):
+    """``run_prep_windows`` on m = 1, 2, 4, 8 of the pan frames' 49-frame
+    host-prep windows against m ``run_prep_window`` calls: Hamming exact,
+    flow mean rtol 1e-4, variance rtol 1e-3; warp and blur+solve launched
+    as often for one stacked call as for one window; wall ms of both."""
+    import torch
+    from avd_tpu_torch.ops import host_prep
+    from avd_tpu_torch.ops import video_features as vf
+    cuda = torch.device(DEV)
+    s320, s32, _ = host_prep.host_prep(frames)
+    n = vf._DEFAULT_CHUNK + 1
+    stride = (frames.shape[0] - n) // (STACK_MS[-1] - 1)
+    w320 = np.stack([s320[i * stride:i * stride + n]
+                     for i in range(STACK_MS[-1])])
+    w32 = np.stack([s32[i * stride:i * stride + n]
+                    for i in range(STACK_MS[-1])])
+    k = n - 1
+    rows = {}
+    for m in STACK_MS:
+        _reset_counters()
+        stacked = vf.run_prep_windows(w320[:m], w32[:m], cuda).cpu().numpy()
+        c_st = _counters()
+        _reset_counters()
+        single = torch.stack([vf.run_prep_window(w320[i], w32[i], cuda)
+                              for i in range(m)]).cpu().numpy()
+        c_one = {key: v // m for key, v in _counters().items()}
+        for name in ("warp_bilinear", "box_blur_solve"):
+            check(c_st[name] == c_one[name] == len(LEVELS) * ROUNDS,
+                  f"stacked m={m}: {name} launched {c_st[name]} times in "
+                  f"one stacked call, {c_one[name]} a single window")
+        check(np.array_equal(stacked[:, :k], single[:, :k]),
+              f"stacked m={m}: Hamming differs")
+        check(np.allclose(stacked[:, k:2 * k], single[:, k:2 * k],
+                          rtol=1e-4, atol=0.0),
+              f"stacked m={m}: flow mean beyond rtol 1e-4")
+        check(np.allclose(stacked[:, 2 * k:], single[:, 2 * k:], rtol=1e-3,
+                          atol=0.0),
+              f"stacked m={m}: flow variance beyond rtol 1e-3")
+        d = np.abs(stacked - single)
+        st_ms = _wall_ms(lambda: vf.run_prep_windows(w320[:m], w32[:m],
+                                                     cuda).cpu())
+        one_ms = _wall_ms(lambda: torch.stack([
+            vf.run_prep_window(w320[i], w32[i], cuda)
+            for i in range(m)]).cpu())
+        rows[m] = {"max_abs_mean": float(d[:, k:2 * k].max()),
+                   "max_abs_var": float(d[:, 2 * k:].max()),
+                   "stacked_ms": min(st_ms), "singles_ms": min(one_ms)}
+        log(f"stacked windows m={m} ({m * k} pairs of 320²): Hamming equal, "
+            f"flow mean max |Δ| {rows[m]['max_abs_mean']:.3g}, variance "
+            f"max |Δ| {rows[m]['max_abs_var']:.3g}; warp/blur+solve "
+            f"launches {c_st['warp_bilinear']}/{c_st['box_blur_solve']} "
+            f"per stacked call = per window; wall ms one stacked call "
+            f"{min(st_ms):.3f} (runs {', '.join(f'{t:.3f}' for t in st_ms)})"
+            f" against {m} single calls {min(one_ms):.3f} (runs "
+            f"{', '.join(f'{t:.3f}' for t in one_ms)})")
+    return rows
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class MasterProc:
+    """``python -m avd_tpu_torch.serve.master --device cuda`` in a
+    subprocess on a free port, its log under ``chiprun_out/``."""
+
+    def __init__(self, name, **env):
+        self.port = _free_port()
+        self.log_path = os.path.join("chiprun_out", f"serve_{name}.log")
+        os.makedirs("chiprun_out", exist_ok=True)
+        full = dict(os.environ)
+        full.update({"GUNICORN_BIND": f"127.0.0.1:{self.port}",
+                     "GUNICORN_GRACEFUL_TIMEOUT": "30",
+                     "GUNICORN_MAX_REQUESTS": "0"})
+        full.update(env)
+        with open(self.log_path, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "avd_tpu_torch.serve.master",
+                 "--device", "cuda"], env=full, stdout=f,
+                stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.url = f"http://127.0.0.1:{self.port}"
+
+    def text(self):
+        with open(self.log_path) as f:
+            return f.read()
+
+    def assert_clean(self):
+        text = self.text()
+        check("warmup skipped" not in text and "Traceback" not in text,
+              f"master log {self.log_path}:\n{text[-3000:]}")
+        return text
+
+    def wait_log(self, needle, count=1, timeout=240.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            text = self.assert_clean()
+            if text.count(needle) >= count:
+                return text
+            check(self.proc.poll() is None,
+                  f"master exited {self.proc.returncode}:\n{text[-3000:]}")
+            time.sleep(0.2)
+        raise PhaseError(f"{count}x {needle!r} not in {self.log_path} "
+                         f"after {timeout:.0f} s:\n{self.text()[-3000:]}")
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.send_signal(15)
+            try:
+                self.proc.wait(timeout=90)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        return self.text()
+
+
+def _key_paths(d, prefix=""):
+    """Every dict's key order, walked depth first."""
+    out = [(prefix, list(d))]
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out += _key_paths(v, f"{prefix}.{k}")
+    return out
+
+
+def same_served(served, ref, what):
+    """A served envelope against the in-process one on the same file."""
+    from avd_tpu_torch import schema
+    schema.validate(served)
+    check(_key_paths(served) == _key_paths(ref), f"{what}: key order")
+    for key in ("video_error", "audio_error"):
+        check(key not in served["hints"],
+              f"{what}: {key} {served['hints'].get(key)}")
+    check("detector_error" not in served["video"], f"{what}: detector_error")
+    check(served["result"]["label"] == ref["result"]["label"],
+          f"{what}: label {served['result']} against {ref['result']}")
+    d_ai = abs(served["result"]["ai_score"] - ref["result"]["ai_score"])
+    check(d_ai <= 1e-3, f"{what}: |Δai_score| {d_ai}")
+    a, b = served["video"]["timeline"], ref["video"]["timeline"]
+    check(len(a) == len(b), f"{what}: timeline length {len(a)} / {len(b)}")
+    d_tl = float(np.max(np.abs(np.subtract(a, b)))) if a else 0.0
+    check(d_tl <= TIMELINE_EQ, f"{what}: heuristic timeline |Δ| {d_tl}")
+    return d_ai, d_tl
+
+
+def _timed_requests(client, path, clients, total):
+    """``total`` uploads of ``path`` from ``clients`` threads: (wall s,
+    per-request latencies s, envelopes)."""
+    import concurrent.futures
+
+    def one(_):
+        t0 = time.perf_counter()
+        raw = client.analyze(path).raw
+        return time.perf_counter() - t0, raw
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=clients) as ex:
+        got = list(ex.map(one, range(total)))
+    return (time.perf_counter() - t0, [g[0] for g in got],
+            [g[1] for g in got])
+
+
+def _latency_row(walls, lats, clients):
+    """Requests/s over the summed walls, p50 and max over every latency
+    of the rounds, and each round's requests/s."""
+    n = len(lats) // len(walls)
+    return {"clients": clients, "requests": len(lats), "rounds": len(walls),
+            "wall_s": sum(walls), "requests_per_s": len(lats) / sum(walls),
+            "round_requests_per_s": [n / w for w in walls],
+            "p50_s": statistics.median(lats), "max_s": max(lats)}
+
+
+def _fmt_row(r):
+    return (f"{r['clients']} client(s), {r['requests']} requests in "
+            f"{r['rounds']} rounds: {r['requests_per_s']:.3f} requests/s "
+            "(rounds "
+            + ", ".join(f"{x:.3f}" for x in r["round_requests_per_s"])
+            + f"), p50 {r['p50_s']:.3f} s, max {r['max_s']:.3f} s, wall "
+            f"{r['wall_s']:.3f} s")
+
+
+def phase_served(wav_path, card_name):
+    """A real master on the card (WEB_CONCURRENCY=2): both workers warm,
+    /readyz names the card, the served WAV and 1080p mp4 equal the
+    in-process envelopes, and a zero-downtime recycle whose replacement
+    (forked while its sibling holds a CUDA context) warms and serves."""
+    import re
+    import torch
+    from avd_tpu_torch import pipeline
+    from avd_tpu_torch.client import Client
+    check(os.path.exists(MP4_1080P), f"{MP4_1080P} was not written")
+    cuda = torch.device(DEV)
+    torch.cuda.empty_cache()  # the workers share the card with this process
+    refs = {p: pipeline.analyze_path(p, device=cuda)
+            for p in (wav_path, MP4_1080P)}
+    master = MasterProc("recycle", WEB_CONCURRENCY="2",
+                    GUNICORN_MAX_REQUESTS="3",
+                    GUNICORN_MAX_REQUESTS_JITTER="0")
+    try:
+        t0 = time.perf_counter()
+        master.wait_log("warmup complete", 2)
+        boot_s = time.perf_counter() - t0
+        c = Client(master.url, timeout=600, retries=4)
+        ready = c.wait_ready(timeout_s=60, poll_s=0.5)
+        check(ready["cuda"]["devices"] >= 1
+              and ready["cuda"]["kind"] == card_name,
+              f"/readyz cuda {ready['cuda']}, expected {card_name}")
+        diffs = {}
+        for p in (wav_path, MP4_1080P):
+            diffs[os.path.basename(p)] = same_served(
+                c.analyze(p).raw, refs[p], f"served {os.path.basename(p)}")
+        # a worker at its budget (3) asks for a replacement: stop sending
+        # once the master has spawned it, then wait for the handshake
+        sent = 0
+        while master.text().count("spawned worker") < 3:
+            check(sent < 40, "no replacement spawned after 40 requests")
+            c.health()
+            sent += 1
+        text = master.wait_log("retired (zero-downtime recycle)")
+        master.wait_log("warmup complete", 3)
+        text = master.wait_log("serving on", 3)
+        spawned = re.findall(r"\[master\] spawned worker (\d+)", text)
+        replacement = spawned[2]
+        for _ in range(12):
+            c.health()
+        same_served(c.analyze(wav_path).raw, refs[wav_path],
+                    "served WAV after the recycle")
+    finally:
+        text = master.stop()
+    check("Traceback" not in text and "warmup skipped" not in text,
+          f"master log:\n{text[-3000:]}")
+    served = re.findall(rf"\[worker {replacement}\] exiting after (\d+) "
+                        "requests", text)
+    check(served and int(served[0]) >= 1,
+          f"replacement {replacement} served {served} requests:\n"
+          f"{text[-3000:]}")
+    log(f"served (master, 2 workers on the card): both warm in "
+        f"{boot_s:.2f} s; /readyz cuda {ready['cuda']}; WAV |Δai_score| "
+        f"{diffs[os.path.basename(wav_path)][0]:.3g}, timeline |Δ| "
+        f"{diffs[os.path.basename(wav_path)][1]:.3g}; 1080p mp4 "
+        f"|Δai_score| {diffs[os.path.basename(MP4_1080P)][0]:.3g}, "
+        f"timeline |Δ| {diffs[os.path.basename(MP4_1080P)][1]:.3g}; "
+        f"zero-downtime recycle after {sent} more requests: replacement "
+        f"{replacement} warmed and served {served[0]} requests")
+    return refs[MP4_1080P]
+
+
+SERVE_ROUNDS = 2             # timed rounds a batching mode
+SERVE_UPLOADS = {1: 16, 4: 32}  # uploads a round at each client count
+
+
+def phase_batching(ref_mp4):
+    """Cross-request batching on the card: one worker with 4 threads and
+    AVD_BATCH_WINDOW_MS=100; 4 concurrent uploads of the 1080p mp4 fuse
+    (batch_fused_jobs >= 2) and each equals the solo envelope.  Then, with
+    batching on and off, SERVE_ROUNDS rounds of 16 uploads from 1 client
+    and 32 from 4: requests/s, p50 and max latency over every upload of
+    the rounds, every envelope held to the solo one."""
+    from avd_tpu_torch.client import Client
+    rows = {}
+    for mode, window in (("on", "100"), ("off", "0")):
+        master = MasterProc(f"batching_{mode}", WEB_CONCURRENCY="1",
+                            GUNICORN_THREADS="4", AVD_BATCH_WINDOW_MS=window,
+                            AVD_MAX_INFLIGHT="0")
+        timed = {k: ([], []) for k in SERVE_UPLOADS}  # walls, latencies
+        fused = {k: 0 for k in SERVE_UPLOADS}  # fused jobs in the rounds
+        try:
+            master.wait_log("warmup complete")
+            c = Client(master.url, timeout=600, retries=4)
+            c.wait_ready(timeout_s=60, poll_s=0.5)
+            wall4, _, envs = _timed_requests(c, MP4_1080P, 4, 4)
+            metrics = c.metrics()["metrics"]
+            for i, env in enumerate(envs):
+                same_served(env, ref_mp4,
+                            f"batching {mode}, concurrent upload {i}")
+            wall1, _, envs = _timed_requests(c, MP4_1080P, 1, 4)
+            for i, env in enumerate(envs):
+                same_served(env, ref_mp4, f"batching {mode}, upload {i}")
+            for r in range(SERVE_ROUNDS):
+                for clients, total in SERVE_UPLOADS.items():
+                    before = c.metrics()["metrics"].get("batch_fused_jobs", 0)
+                    wall, lats, envs = _timed_requests(c, MP4_1080P, clients,
+                                                       total)
+                    fused[clients] += c.metrics()["metrics"].get(
+                        "batch_fused_jobs", 0) - before
+                    timed[clients][0].append(wall)
+                    timed[clients][1].extend(lats)
+                    for i, env in enumerate(envs):
+                        same_served(env, ref_mp4, f"batching {mode}, round "
+                                    f"{r}, {clients} client(s), upload {i}")
+        finally:
+            master.stop()
+        master.assert_clean()
+        if mode == "on":
+            check(metrics.get("batch_fused_jobs", 0) >= 2,
+                  f"batching on: metrics {metrics}")
+        rows[mode] = {"four_concurrent_wall_s": wall4,
+                      "four_sequential_wall_s": wall1,
+                      "batch_fused_jobs": metrics.get("batch_fused_jobs"),
+                      "batches_formed": metrics.get("batches_formed"),
+                      "batch_jobs_in": metrics.get("batch_jobs_in")}
+        for clients, (walls, lats) in timed.items():
+            rows[mode][f"clients_{clients}"] = dict(
+                _latency_row(walls, lats, clients),
+                fused_jobs=fused[clients] if mode == "on" else None)
+        log(f"served 1080p mp4, batching {mode} (1 worker, 4 threads): 4 "
+            f"concurrent uploads {wall4:.3f} s, 4 sequential {wall1:.3f} s "
+            f"(batcher jobs {rows[mode]['batch_jobs_in']}, batches "
+            f"{rows[mode]['batches_formed']}, fused jobs "
+            f"{rows[mode]['batch_fused_jobs']}); "
+            + "; ".join(f"{_fmt_row(rows[mode][f'clients_{k}'])}, fused "
+                        f"jobs {fused[k] if mode == 'on' else None}"
+                        for k in SERVE_UPLOADS))
+    log(f"4 concurrent uploads with batching against 4 sequential without: "
+        f"{rows['on']['four_concurrent_wall_s']:.3f} s against "
+        f"{rows['off']['four_sequential_wall_s']:.3f} s")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "serving.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return rows
+
+
+def phase_trace_route(ref_mp4):
+    """The in-process app with DEBUG=1: /debug/trace/start, one upload of
+    the 1080p mp4, /debug/trace/stop; the Chrome trace names
+    warp_bilinear_kernel, and the request launched the flow kernels (the
+    counters set to 0 just before and read just after)."""
+    import threading
+    import torch
+    from avd_tpu_torch.client import Client
+    from avd_tpu_torch.serve import app as app_mod
+    from avd_tpu_torch.serve import http as http_mod
+    trace_dir = os.path.join("build", "chip_smoke_trace")
+    _set_env(DEBUG="1", AVD_TRACE_DIR=os.path.abspath(trace_dir))
+    srv = None
+    try:
+        srv = http_mod.make_server(
+            app_mod.build_app(device=torch.device(DEV)), "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        c = Client(f"http://127.0.0.1:{srv.server_address[1]}", timeout=600)
+        c._post_form("/debug/trace/start", {})
+        _reset_counters()
+        t0 = time.perf_counter()
+        env = c.analyze(MP4_1080P).raw
+        secs = time.perf_counter() - t0
+        launches = _counters()
+        trace = c._post_form("/debug/trace/stop", {})["trace"]
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        _set_env(DEBUG=None, AVD_TRACE_DIR=None)
+    same_served(env, ref_mp4, "in-process app, traced")
+    for name in ("warp_bilinear", "box_blur_solve"):
+        check(launches[name] == len(LEVELS) * ROUNDS * 4,
+              f"served request launched {name} {launches[name]} times, "
+              "expected 48 (4 windows x 4 levels x 3 rounds)")
+    check(os.path.exists(trace), f"no trace at {trace}")
+    with open(trace) as f:
+        text = f.read()
+    n_warp = text.count("warp_bilinear_kernel")
+    check(n_warp > 0, f"trace {trace} names no warp_bilinear_kernel")
+    log(f"trace route: one traced upload of the 1080p mp4 in {secs:.3f} s; "
+        f"launches {launches}; Chrome trace {os.path.getsize(trace)} bytes "
+        f"naming warp_bilinear_kernel {n_warp} times")
+    return launches
+
+
 def kernel_entry(name, source, replaces, rows, max_err, launches):
     ms = ROUNDS * sum(r[1] for r in rows)
     plain = ROUNDS * sum(r[2] for r in rows)
@@ -1791,6 +2211,10 @@ def main():
         stream_launches = phase_streaming(frames, fb)
         cli_s = phase_cli(wav_path)
         phase_fault3(frames)
+        stack_rows = phase_stacked_windows(frames)
+        ref_mp4 = phase_served(wav_path, torch.cuda.get_device_name(0))
+        serve_rows = phase_batching(ref_mp4)
+        served_launches = phase_trace_route(ref_mp4)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1821,6 +2245,7 @@ def main():
     ]
     for entry in kernels:
         entry["streaming_launches"] = stream_launches.get(entry["name"], 0)
+        entry["served_launches"] = served_launches.get(entry["name"], 0)
     # what the fused round replaces: warp kernel + PyTorch update +
     # blur+solve kernel, same unit
     kernels[2]["unfused_sequence_ms"] = ROUNDS * sum(
@@ -1829,6 +2254,17 @@ def main():
                                        for r in iter_rows[len(LEVELS):]}
     log(f"file path: analyze_path WAV {wav_s:.3f} s, mp4 {mp4_s:.3f} s "
         f"(first calls), CLI first call {cli_s:.2f} s")
+    on, off = serve_rows["on"], serve_rows["off"]
+    log("serving: stacked windows "
+        + "; ".join(f"m={m} {r['stacked_ms']:.3f} ms against "
+                    f"{r['singles_ms']:.3f}" for m, r in stack_rows.items())
+        + f"; 4 concurrent 1080p uploads {on['four_concurrent_wall_s']:.3f}"
+        f" s batched against {off['four_sequential_wall_s']:.3f} s "
+        "sequential unbatched; requests/s 1 client on/off "
+        f"{on['clients_1']['requests_per_s']:.3f}/"
+        f"{off['clients_1']['requests_per_s']:.3f}, 4 clients on/off "
+        f"{on['clients_4']['requests_per_s']:.3f}/"
+        f"{off['clients_4']['requests_per_s']:.3f}")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

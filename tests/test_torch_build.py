@@ -1,7 +1,10 @@
 """``ops/kernels/_build``: the library path follows the source, the headers
-and the flags.  No nvcc is needed: only the digest is computed."""
+and the flags, and processes building together run each nvcc once.  No
+nvcc is needed: only the digest is computed, or a stub stands in."""
 
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -66,3 +69,40 @@ def test_the_port_ships_the_headers_its_sources_include():
                 if line.startswith('#include "'):
                     header = line.split('"')[1]
                     assert os.path.exists(os.path.join(_build.CSRC, header))
+
+
+_BUILD_ALL = r"""
+import sys
+from avd_tpu_torch.ops.kernels import _build
+_build.BUILD_DIR = sys.argv[1]
+_build.build_all()
+"""
+
+
+def test_two_processes_run_each_nvcc_once(tmp_path):
+    """Two processes that start ``build_all`` together on a fresh build
+    directory (the serving workers of a fresh tree) compile each source
+    once: the second waits on ``BUILD_DIR/.lock`` and finds the libraries
+    built.  ``nvcc`` is a stub on PATH that sleeps, writes its ``-o`` file
+    and logs it."""
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    log = tmp_path / "nvcc.log"
+    stub = bindir / "nvcc"
+    stub.write_text(
+        "#!/bin/sh\nout=''\nwhile [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then out=\"$2\"; shift; fi\n  shift\ndone\n"
+        f"sleep 1\necho \"$out\" >> '{log}'\necho stub > \"$out\"\n")
+    stub.chmod(0o755)
+    build = tmp_path / "build"
+    env = dict(os.environ, PATH=f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_ALL, str(build)],
+                              env=env, cwd=repo) for _ in range(2)]
+    assert [p.wait(timeout=120) for p in procs] == [0, 0]
+    compiled = [os.path.basename(x) for x in log.read_text().split()]
+    assert len(compiled) == len(_build.SOURCES)
+    assert sorted(c.split("-")[0] for c in compiled) == \
+        sorted(f"lib{n}" for n in _build.SOURCES)
+    want = {os.path.basename(_build.lib_path(n)) for n in _build.SOURCES}
+    assert set(os.listdir(build)) == want | {".lock"}

@@ -206,3 +206,51 @@ def test_native_decode_structs():
     for name in ("MediaInfoStruct", "ProbeInfoStruct"):
         assert getattr(tdecode, name)._fields_ == \
             getattr(jdecode, name)._fields_, name
+
+
+def _code(module, strip_docstrings=False) -> str:
+    """A module's code: without its module docstring, or as an AST dump
+    without any docstring and with the port's package name folded."""
+    import ast
+    import inspect
+    src = inspect.getsource(module)
+    if not strip_docstrings:
+        return "\n".join(src.splitlines()[ast.parse(src).body[0].end_lineno:])
+    tree = ast.parse(src.replace("avd_tpu_torch", "avd_tpu"))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+def test_serving_copies_and_tables():
+    """The stdlib serving modules are copies: ``serve/http.py`` the same
+    code, the resolver the same but for docstrings and package names, the
+    client the same public surface; the batcher's ladder, the master's
+    control signals and the app's service name are ``avd_tpu``'s."""
+    from avd_tpu import client as jclient
+    from avd_tpu.ingest import url as jurl
+    from avd_tpu.serve import app as japp
+    from avd_tpu.serve import batching as jbatching
+    from avd_tpu.serve import http as jhttp
+    from avd_tpu.serve import master as jmaster
+    from avd_tpu_torch import client as tclient
+    from avd_tpu_torch.ingest import url as turl
+    from avd_tpu_torch.serve import app as tapp
+    from avd_tpu_torch.serve import batching as tbatching
+    from avd_tpu_torch.serve import http as thttp
+    from avd_tpu_torch.serve import master as tmaster
+    assert _code(thttp) == _code(jhttp)
+    assert _code(turl, True) == _code(jurl, True)
+    for name in ("Client", "AnalysisResult", "APIError", "ClientError"):
+        assert sorted(vars(getattr(tclient, name))) == \
+            sorted(vars(getattr(jclient, name)))
+    assert tbatching._BUCKETS == jbatching._BUCKETS
+    assert tbatching.WindowBatcher._IDLE_EXIT_S == \
+        jbatching.WindowBatcher._IDLE_EXIT_S
+    assert (tmaster._SIG_RECYCLE, tmaster._SIG_READY) == \
+        (jmaster._SIG_RECYCLE, jmaster._SIG_READY)
+    assert tapp.SERVICE_NAME == japp.SERVICE_NAME

@@ -227,9 +227,9 @@ def test_analyzers_run_on_threads_with_the_resolved_device(env, media):
     seen = {}
 
     def spy(name, fn):
-        def run(path, meta, device=None):
+        def run(path, meta, device=None, *batcher):
             seen[name] = device
-            return fn(path, meta, device=device)
+            return fn(path, meta, device, *batcher)
         return run
 
     env.setattr(pipeline.audio_an, "analyze", spy("audio", audio_an.analyze))
@@ -244,7 +244,7 @@ def test_analyzers_run_on_threads_with_the_resolved_device(env, media):
 
 
 def test_a_failing_analyzer_gives_the_neutral_block(env, media):
-    def boom(path, meta, device=None):
+    def boom(path, meta, device=None, batcher=None):
         raise KeyError("x")
 
     env.setattr(pipeline.video_an, "analyze", boom)

@@ -25,6 +25,8 @@ from avd_tpu_torch.ingest import video_reader
 from avd_tpu_torch.models import detector, scoring
 from avd_tpu_torch.ops import audio_features, video_features
 from avd_tpu_torch.ops.kernels import attention, blur_solve, flow_iter, warp
+from avd_tpu_torch.serve import app as serve_app
+from avd_tpu_torch.serve import batching
 
 torch.set_num_threads(1)
 
@@ -52,8 +54,39 @@ for n in ("avd_tpu_torch.models", "avd_tpu_torch.models.detector",
           "avd_tpu_torch.ingest.video_reader",
           "avd_tpu_torch.analyzers.meta", "avd_tpu_torch.analyzers.forensic",
           "avd_tpu_torch.analyzers.audio", "avd_tpu_torch.native.decode",
-          "avd_tpu_torch.oracle.video_ref"):
+          "avd_tpu_torch.oracle.video_ref", "avd_tpu_torch.serve",
+          "avd_tpu_torch.serve.http", "avd_tpu_torch.serve.app",
+          "avd_tpu_torch.serve.batching", "avd_tpu_torch.serve.master",
+          "avd_tpu_torch.client", "avd_tpu_torch.ingest.url"):
     assert n in names, n
+"""
+
+# The master process forks the workers, so it must never initialize CUDA
+# or torch's thread pools: it imports neither torch nor the application.
+_MASTER_PROBE = r"""
+import shutil, sys
+from avd_tpu_torch.serve import master
+mm = master.Master("cuda")
+shutil.rmtree(mm.hb_dir)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("torch", "jax", "avd_tpu")
+             or k in ("avd_tpu_torch.pipeline", "avd_tpu_torch.serve.app"))
+print(bad)
+assert not bad, bad
+"""
+
+# The analysis layers take the serving batcher as an argument: importing
+# them (and running the streaming path) loads nothing of serving.
+_LAYER_PROBE = r"""
+import sys
+import numpy as np
+from avd_tpu_torch import pipeline
+from avd_tpu_torch.ops import video_features
+video_features.compute_features_streaming(
+    iter([np.zeros((3, 32, 32, 3), np.uint8)]), device="cpu")
+bad = sorted(k for k in sys.modules if k.startswith("avd_tpu_torch.serve"))
+print(bad)
+assert not bad, bad
 """
 
 
@@ -62,7 +95,22 @@ def test_port_imports_no_jax_and_no_avd_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 37, r.stdout
+    assert n_modules >= 44, r.stdout
+
+
+def test_serving_master_imports_no_torch():
+    r = subprocess.run([sys.executable, "-c", _MASTER_PROBE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+def test_analysis_layers_import_no_serving():
+    r = subprocess.run([sys.executable, "-c", _LAYER_PROBE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "AVD_NATIVE": "0"})
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
 
 
 def _frames():
@@ -105,6 +153,14 @@ _ENTRY_POINTS = {
     "warm_device": lambda: video_features.warm_device(),
     "scoring.clip_window": lambda: scoring.clip_window(),
     "cli": lambda: cli.main(["/nonexistent.wav"]),
+    "serve.build_app": lambda: serve_app.build_app(),
+    "serve.app.main": lambda: serve_app.main([]),
+    "batcher.submit_prep": lambda: batching.WindowBatcher(10).submit_prep(
+        np.zeros((2, 320, 320), np.uint8), np.zeros((2, 32, 32), np.uint8),
+        None),
+    "run_prep_windows": lambda: video_features.run_prep_windows(
+        np.zeros((1, 2, 320, 320), np.uint8),
+        np.zeros((1, 2, 32, 32), np.uint8), None),
 }
 
 

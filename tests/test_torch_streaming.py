@@ -167,11 +167,11 @@ def test_a_streaming_failure_restarts_on_the_batch_path(env, clip):
     real = video_features.compute_features_streaming
     calls = []
 
-    def fails_once(chunks, device=None):
+    def fails_once(chunks, device=None, batcher=None):
         calls.append(device)
         if len(calls) == 1:
             raise RuntimeError("kernel failed to launch")
-        return real(chunks, device=device)
+        return real(chunks, device=device, batcher=batcher)
 
     env.setattr(video_features, "compute_features_streaming", fails_once)
     out = video_an.analyze(path, meta, device="cpu")
