@@ -80,9 +80,10 @@ class _DetAccum:
     chunks accumulate up to one slab (``AVD_DETECTOR_SLAB`` frames,
     default 256 — about 38 MB u8 at 224 px), which is scored while the
     stream keeps draining.  The ViT scores each frame on its own, so the
-    timeline does not depend on the grouping; clip-based families, once
-    ported, score in fixed windows, and only whole windows flush
-    mid-stream (``scoring.clip_window``)."""
+    timeline does not depend on the grouping; the clip-based temporal
+    family scores in fixed windows, and only whole windows flush
+    mid-stream (``scoring.clip_window``), so its streaming timeline is the
+    batch path's."""
 
     def __init__(self, device):
         self.device = device

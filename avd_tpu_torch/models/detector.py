@@ -15,16 +15,20 @@ approximation on bf16; the final LayerNorm and the head are f32.  With
 hand-written kernel on CUDA tensors, its plain version on CPU tensors);
 without it, the einsum pair of the JAX block with f32 scores.
 
-Dense MLP only: mixture-of-experts configs, training, tensor/pipeline
-parallelism and checkpoint I/O in the orbax format are later slices
-(``ROADMAP.md``).
+With ``cfg.n_experts`` the MLP is the Switch mixture of experts of
+``avd_tpu`` (top-1 routing per example with capacity drops, ``_moe_mlp``),
+routed on f32 features that recompute the embedding end to end
+(``_router_features``) with snapped logits, so every token picks the same
+expert on the card, on the CPU and in ``avd_tpu``.  Training,
+tensor/pipeline/expert parallelism and checkpoint I/O in the orbax format
+are later slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -47,8 +51,11 @@ class ViTConfig:
     # [B, H, T, T] scores never reach device memory.  Serving opts in via
     # AVD_ATTN_FUSED=1 (models/scoring.py).
     fused_attn: bool = False
-    # Mixture-of-experts MLP (0 = dense); not ported yet.
+    # Switch mixture-of-experts MLP (0 = dense): top-1 routing over
+    # per-example token groups, capacity_factor · tokens / n_experts
+    # tokens per expert, the rest dropped onto the residual.
     n_experts: int = 0
+    capacity_factor: float = 1.25
 
     @property
     def tokens(self) -> int:
@@ -59,29 +66,48 @@ class ViTConfig:
         return self.width // self.heads
 
     @property
+    def expert_capacity(self) -> int:
+        """Per-example token capacity of one expert (Switch C)."""
+        return max(1, math.ceil(self.tokens / self.n_experts
+                                * self.capacity_factor))
+
+    @property
     def mlp_width(self) -> int:
         return self.width * self.mlp_ratio
 
 
+Config = ViTConfig  # the family API (models/__init__.py::family)
+
 PRESETS = {
     "small": dict(image_size=64, patch=16, width=256, depth=4, heads=4),
     "full": {},  # the dataclass defaults: 224px, width 384, depth 6
-    # Switch-MoE variant of 'small'; building it raises until MoE is ported
+    # Switch-MoE variant of 'small' (4 experts, top-1); ships trained
     "moe_small": dict(image_size=64, patch=16, width=256, depth=4,
                       heads=4, n_experts=4),
 }
 
-# bf16 operands of the forward pass; LayerNorms and the head stay f32
+# bf16 operands of the forward pass; LayerNorms, the router and the head
+# stay f32
 _BF16 = ("patch_w", "patch_b", "pos_emb", "cls_tok", "qkv_w", "qkv_b",
          "proj_w", "proj_b", "mlp_in_w", "mlp_in_b", "mlp_out_w",
-         "mlp_out_b")
+         "mlp_out_b", "moe_in_w", "moe_in_b", "moe_out_w", "moe_out_b")
+# the embedding leaves the MoE router reads in f32 (_router_features)
+_EMBED = ("patch_w", "patch_b", "cls_tok", "pos_emb")
+# Snap-to-grid routing granularity: logits are rounded to bins of
+# 1/_ROUTER_GRID before the top-1 argmax (avd_tpu/models/detector.py:240)
+_ROUTER_GRID = 4.0
 
 
-def _require_dense(cfg: ViTConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "mixture-of-experts detector configs (n_experts > 0, preset "
-            "'moe_small') are not ported yet (see ROADMAP.md)")
+def stored_bf16(cfg: ViTConfig):
+    """The leaves every served mode reads in bf16, which a checkpoint may
+    store as bf16: none for a dense config (the int8 forward quantizes
+    every weight from f32 and reads the biases and embeddings in f32),
+    the attention and expert operands for an MoE one (its router reads
+    the embedding leaves in f32; the int8 forward rejects MoE)."""
+    if not cfg.n_experts:
+        return ()
+    return tuple(k for k in _BF16 if k not in _EMBED
+                 and not k.startswith("mlp_"))
 
 
 def make_config(preset: str = "full", **over) -> ViTConfig:
@@ -90,21 +116,23 @@ def make_config(preset: str = "full", **over) -> ViTConfig:
                          f"choose from {sorted(PRESETS)}")
     kw = dict(PRESETS[preset])
     kw.update(over)
-    cfg = ViTConfig(**kw)
-    _require_dense(cfg)
-    return cfg
+    return ViTConfig(**kw)
 
 
 def param_shapes(cfg: ViTConfig) -> Dict[str, Any]:
     """Shape of every parameter, in the tree's layout."""
-    _require_dense(cfg)
-    d, m = cfg.width, cfg.mlp_width
+    d, m, e = cfg.width, cfg.mlp_width, cfg.n_experts
     layer = {"ln1_scale": (d,), "ln1_bias": (d,),
              "qkv_w": (d, 3 * d), "qkv_b": (3 * d,),
              "proj_w": (d, d), "proj_b": (d,),
-             "ln2_scale": (d,), "ln2_bias": (d,),
-             "mlp_in_w": (d, m), "mlp_in_b": (m,),
-             "mlp_out_w": (m, d), "mlp_out_b": (d,)}
+             "ln2_scale": (d,), "ln2_bias": (d,)}
+    if e:
+        layer.update({"router_w": (d, e),
+                      "moe_in_w": (e, d, m), "moe_in_b": (e, m),
+                      "moe_out_w": (e, m, d), "moe_out_b": (e, d)})
+    else:
+        layer.update({"mlp_in_w": (d, m), "mlp_in_b": (m,),
+                      "mlp_out_w": (m, d), "mlp_out_b": (d,)})
     return {"patch_w": (cfg.patch * cfg.patch * 3, d), "patch_b": (d,),
             "pos_emb": (cfg.tokens, d), "cls_tok": (d,),
             "layers": [dict(layer) for _ in range(cfg.depth)],
@@ -113,9 +141,10 @@ def param_shapes(cfg: ViTConfig) -> Dict[str, Any]:
 
 
 def init_params(seed: int, cfg: ViTConfig) -> Dict[str, Any]:
-    """Seeded f32 parameter tree on the CPU: weights N(0, 1/fan_in),
-    embeddings N(0, 0.02²), LayerNorm scales 1, every bias 0.  The same
-    distributions as the JAX initialiser, not its random stream."""
+    """Seeded f32 parameter tree on the CPU: weights N(0, 1/fan_in) (the
+    expert weights over their input width), embeddings N(0, 0.02²),
+    LayerNorm scales 1, every bias 0.  The same distributions as the JAX
+    initialiser, not its random stream."""
     gen = torch.Generator().manual_seed(seed)
     ones = ("ln1_scale", "ln2_scale", "ln_f_scale")
     small = ("pos_emb", "cls_tok")
@@ -126,25 +155,38 @@ def init_params(seed: int, cfg: ViTConfig) -> Dict[str, Any]:
         if name in small:
             return torch.randn(shape, generator=gen) * 0.02
         if name.endswith("_w"):
-            return torch.randn(shape, generator=gen) / math.sqrt(shape[0])
+            return torch.randn(shape, generator=gen) / math.sqrt(shape[-2])
         return torch.zeros(shape)
 
     return _map_tree(make, param_shapes(cfg))
 
 
 def _map_tree(fn, tree: Dict[str, Any]) -> Dict[str, Any]:
-    """``fn(name, leaf)`` over a parameter tree, layers included."""
-    return {k: [_map_tree(fn, lp) for lp in v] if k == "layers"
-            else fn(k, v) for k, v in tree.items()}
+    """``fn(name, leaf)`` over a parameter tree: nested dicts and lists of
+    dicts are walked, anything else is a leaf."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, list):
+            out[k] = [_map_tree(fn, x) for x in v]
+        elif isinstance(v, dict):
+            out[k] = _map_tree(fn, v)
+        else:
+            out[k] = fn(k, v)
+    return out
 
 
 def cast_for_inference(params: Dict[str, Any], device=None) -> Dict[str, Any]:
     """The tree on ``device`` (default CUDA) with the matmul operands
     already rounded to bf16, so a forward pass casts nothing.  Rounding is
-    the cast that ``forward`` would do at each use: results are equal."""
+    the cast that ``forward`` would do at each use: results are equal.  An
+    MoE tree keeps the embedding leaves in f32: its router reads them in
+    f32 (``_router_features``), and ``embed`` rounds them where it uses
+    them."""
     dev = device_mod.resolve(device)
+    moe = any("router_w" in lp for lp in params["layers"])
+    bf16 = tuple(k for k in _BF16 if not (moe and k in _EMBED))
     return _map_tree(
-        lambda name, x: x.to(dev, torch.bfloat16 if name in _BF16
+        lambda name, x: x.to(dev, torch.bfloat16 if name in bf16
                              else torch.float32), params)
 
 
@@ -178,9 +220,72 @@ def embed(params: Dict[str, Any], frames: torch.Tensor,
     return x + _bf16(params["pos_emb"])[None]
 
 
-def block_forward(x: torch.Tensor, lp: Dict[str, Any],
-                  cfg: ViTConfig) -> torch.Tensor:
-    """One transformer block on the bf16 residual stream [B, T, width]."""
+def _router_features(params: Dict[str, Any], frames: torch.Tensor,
+                     cfg: ViTConfig) -> torch.Tensor:
+    """The MoE routing input: the embedding recomputed in f32 end to end
+    (patchify, project, cls, positions) through a parameter-free
+    LayerNorm, [B, T, width] f32.  f32 sums differ between programs by
+    about 1e-7, far under the routing grid, so the snapped top-1 choice is
+    the same on every device (``avd_tpu/models/detector.py:245-264``)."""
+    x = patchify(frames.float(), cfg.patch)
+    x = x @ params["patch_w"].float() + params["patch_b"].float()
+    cls = params["cls_tok"].float().expand(x.shape[0], 1, cfg.width)
+    x = torch.cat([cls, x], dim=1) + params["pos_emb"].float()[None]
+    return _ln(x, 1.0, 0.0)
+
+
+def _route(rx: torch.Tensor, router_w: torch.Tensor):
+    """(f32 router logits [B, T, E], top-1 expert [B, T]): the argmax of
+    the logits snapped to the grid, ties to the lowest expert index."""
+    logits = rx @ router_w.float()
+    return logits, torch.argmax(torch.round(logits * _ROUTER_GRID), dim=-1)
+
+
+def expert_indices(params: Dict[str, Any], frames: torch.Tensor,
+                   cfg: ViTConfig) -> torch.Tensor:
+    """Top-1 expert of every token in every layer, [depth, B, T] int64."""
+    rx = _router_features(params, frames, cfg)
+    return torch.stack([_route(rx, lp["router_w"])[1]
+                        for lp in params["layers"]])
+
+
+def _moe_mlp(h: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
+             router_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Switch top-1 MoE MLP over per-example token groups
+    (``avd_tpu/models/detector.py:267-327``), inference half.
+
+    ``h``: [B, T, d] bf16 after the LayerNorm.  Each token goes to its
+    expert's queue in token order; a token past the expert's capacity C is
+    dropped (a zero delta: the residual carries it).  The 0/1 dispatch
+    tensor [B, T, E, C] gathers the tokens, the experts run as bf16
+    einsums, and the combine tensor (dispatch · gate value) scatters them
+    back.  ``router_x`` is the f32 routing input (``_router_features``);
+    without it the block routes on ``h`` itself."""
+    E, C = cfg.n_experts, cfg.expert_capacity
+    rx = h.float() if router_x is None else router_x
+    logits, eidx = _route(rx, lp["router_w"])
+    gate = torch.softmax(logits, dim=-1)
+    onehot = F.one_hot(eidx, E).float()                 # [B, T, E]
+    gateval = (gate * onehot).sum(dim=-1)               # [B, T]
+    pos = torch.cumsum(onehot, dim=1) * onehot          # 1-based queue slot
+    keep = (pos > 0) & (pos <= C)
+    slot = torch.clamp(pos - 1, 0, C - 1).long()
+    slot1h = F.one_hot((slot * onehot.long()).sum(dim=-1), C).float()
+    disp = (onehot * keep.float())[..., None] * slot1h[:, :, None, :]
+    comb = disp * gateval[..., None, None]              # [B, T, E, C]
+
+    xin = torch.einsum("btec,btd->becd", _bf16(disp), h)
+    z = torch.einsum("becd,edh->bech", xin, _bf16(lp["moe_in_w"]))
+    z = F.gelu(z + _bf16(lp["moe_in_b"])[None, :, None], approximate="tanh")
+    z = torch.einsum("bech,ehd->becd", z, _bf16(lp["moe_out_w"]))
+    z = z + _bf16(lp["moe_out_b"])[None, :, None]
+    return torch.einsum("btec,becd->btd", _bf16(comb), z)
+
+
+def block_forward(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
+                  router_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One transformer block on the bf16 residual stream [B, T, width];
+    an MoE layer routes on ``router_x`` (``_router_features``)."""
     h = _bf16(_ln(x.float(), lp["ln1_scale"], lp["ln1_bias"]))
     qkv = h @ _bf16(lp["qkv_w"]) + _bf16(lp["qkv_b"])
     b, t, _ = qkv.shape
@@ -199,6 +304,8 @@ def block_forward(x: torch.Tensor, lp: Dict[str, Any],
     x = x + o
 
     h = _bf16(_ln(x.float(), lp["ln2_scale"], lp["ln2_bias"]))
+    if "router_w" in lp:
+        return x + _moe_mlp(h, lp, cfg, router_x)
     h = h @ _bf16(lp["mlp_in_w"]) + _bf16(lp["mlp_in_b"])
     h = F.gelu(h, approximate="tanh")
     h = h @ _bf16(lp["mlp_out_w"]) + _bf16(lp["mlp_out_b"])
@@ -216,8 +323,9 @@ def forward(params: Dict[str, Any], frames: torch.Tensor,
             cfg: ViTConfig) -> torch.Tensor:
     """ViT forward: [B, H, W, 3] float in [0,1] → [B, n_classes] f32
     logits, on the device the frames and parameters lie on."""
-    _require_dense(cfg)
     x = embed(params, frames, cfg)
+    router_x = (_router_features(params, frames, cfg) if cfg.n_experts
+                else None)
     for lp in params["layers"]:
-        x = block_forward(x, lp, cfg)
+        x = block_forward(x, lp, cfg, router_x)
     return head(params, x)

@@ -1,30 +1,43 @@
 """Detector → analyzer integration (the neural scoring slot).
 
-Port of ``avd_tpu/models/scoring.py`` for the per-frame ViT on one device:
+Port of ``avd_tpu/models/scoring.py`` for every detector family on one
+device:
 
 * ``AVD_DETECTOR=1`` attaches ``video["detector"] = {"timeline": [...],
   "weights": ...}`` (per-sampled-frame AI probabilities) to the video
   analyzer's output;
 * ``AVD_DETECTOR_BLEND=x`` (0..1) blends the detector probability into
   ``timeline_ai`` (0 keeps the pure heuristic);
+* ``AVD_DETECTOR_ARCH`` picks the family: ``vit`` (default), ``cnn`` or
+  ``temporal``;
 * ``AVD_DETECTOR_PRESET`` picks the config.  The default follows
-  ``avd_tpu``'s rule (``_default_preset``): ``full`` (224 px, width 384,
-  depth 6) when its converted checkpoint ships in ``weights/``, else
-  ``small`` when that one does, else ``full``;
+  ``avd_tpu``'s rule (``_default_preset``): for the ViT ``full`` (224 px,
+  width 384, depth 6) when its converted checkpoint ships in
+  ``weights/``, else ``small`` when that one does, else ``full``; ``small``
+  for the other families.  ``moe_small`` is the Switch-MoE ViT;
 * ``AVD_DETECTOR_CKPT`` names a directory written by
   ``tools/torch_convert_weights.py`` (``params.npz`` and, beside it,
-  ``calibration.json``); absent, the preset's shipped checkpoint
-  (``weights/detector_full``, ``weights/detector_small``) serves, and
-  without one the model runs with seeded random weights and says so
-  (``"weights": "random_init"``).  An orbax directory of ``avd_tpu``
-  raises, naming the converter;
+  ``calibration.json``); absent, the shipped checkpoint of (family,
+  preset) serves (``weights/detector_full``, ``detector_small``,
+  ``moe_small``, ``cnn_small``, ``temporal_small``), and without one the
+  model runs with seeded random weights and says so (``"weights":
+  "random_init"``).  An orbax directory of ``avd_tpu`` raises, naming the
+  converter;
 * ``AVD_DETECTOR_TEMP`` overrides the calibration temperature;
-* ``AVD_ATTN_FUSED=1`` routes attention through the hand-written kernel
-  (``ops/kernels/attention.py``).
+* ``AVD_ATTN_FUSED=1`` routes the ViT's attention through the hand-written
+  kernel (``ops/kernels/attention.py``); other families raise, and so does
+  the int8 mode with it;
+* ``AVD_DETECTOR_QUANT=1`` serves the ViT or the CNN in int8 W8A8
+  (``models/quant.py``; weights label ``+int8``); the temporal family
+  raises, and an MoE tree raises ``quantize_params``' error;
+* ``AVD_DETECTOR_ARCH=temporal`` scores the sampled frames as a sequence
+  in fixed ``AVD_TEMPORAL_WINDOW`` windows (default 32), the tail padded
+  with its last frame and masked out of attention, so scores do not
+  depend on the clip's length and streaming slabs (``clip_window``) give
+  the batch path's scores.
 
-The other families (``AVD_DETECTOR_ARCH=cnn|temporal``), int8 serving
-(``AVD_DETECTOR_QUANT``), exported programs (``AVD_DETECTOR_EXPORTED``) and
-sharded inference are not ported yet and raise, naming ``ROADMAP.md``.
+Exported programs (``AVD_DETECTOR_EXPORTED``) and sharded inference are
+not ported yet and raise, naming ``ROADMAP.md``.
 
 Every function that touches the model takes ``device=`` and defaults to
 CUDA through ``device.resolve``: without a GPU it raises unless the caller
@@ -46,6 +59,7 @@ import torch
 from avd_tpu_torch import device as device_mod
 from avd_tpu_torch import models
 from avd_tpu_torch.models import convert
+from avd_tpu_torch.models import quant as quant_mod
 from avd_tpu_torch.ops import host_prep
 
 
@@ -138,6 +152,11 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
 
 
+def _sigmoid(logits: torch.Tensor, temp: float) -> torch.Tensor:
+    """Probabilities of a forward's [B, 1] logits at temperature ``temp``."""
+    return torch.sigmoid(logits[:, 0].float() / temp)
+
+
 def _bundle(device=None):
     """(config, parameters on the device, probs function, weights label)
     for the environment's detector settings, built once per device."""
@@ -163,11 +182,9 @@ def _bundle_on(device: str):
             raise ValueError("AVD_ATTN_FUSED=1 and AVD_DETECTOR_QUANT=1 "
                              "are mutually exclusive (the int8 forward "
                              "has its own attention)")
-    detector = models.family(arch)
-    if quant:
-        raise _not_ported("AVD_DETECTOR_QUANT=1 (int8 W8A8 serving)")
+    family = models.family(arch)
     preset = os.getenv("AVD_DETECTOR_PRESET", _default_preset(arch))
-    cfg = detector.make_config(preset)
+    cfg = family.make_config(preset)
     if fused:
         cfg = dataclasses.replace(cfg, fused_attn=True)
     ckpt = os.getenv("AVD_DETECTOR_CKPT") or _shipped_ckpt(arch, preset)
@@ -175,18 +192,46 @@ def _bundle_on(device: str):
         params = _load_params(ckpt, cfg)
         source = ckpt
     else:
-        params = detector.init_params(0, cfg)
+        params = family.init_params(0, cfg)
         source = "random_init"
     temp = _temperature(ckpt)
     if temp != 1.0:
         source = f"{source}+T{temp:.2f}"
-    params = detector.cast_for_inference(params, dev)
 
-    def probs(frames_f32: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
-            logits = detector.forward(params, frames_f32, cfg)[:, 0]
-            return torch.sigmoid(logits.float() / temp)
+    if quant:
+        # silently serving bf16 while the operator believes int8 is on
+        # would mislead capacity planning: fail (the analyzers report it
+        # as detector_error)
+        if arch not in ("vit", "cnn"):
+            raise ValueError(
+                f"AVD_DETECTOR_QUANT=1 supports vit/cnn, not {arch!r}")
+        params = quant_mod.to_device(quant_mod.quantize_params(params), dev)
+        source = f"{source}+int8"
 
+        @torch.inference_mode()
+        def probs(frames_f32: torch.Tensor) -> torch.Tensor:
+            return _sigmoid(quant_mod.forward(params, frames_f32, cfg), temp)
+    elif arch == "temporal":
+        params = family.cast_for_inference(params, dev)
+
+        @torch.inference_mode()
+        def probs(frames_f32: torch.Tensor, n_valid: int) -> torch.Tensor:
+            mask = torch.arange(frames_f32.shape[0], device=dev) < n_valid
+            return _sigmoid(family.forward_clip(params, frames_f32, cfg,
+                                                mask=mask), temp)
+
+        # fixed-window scoring (avd_tpu/models/scoring.py:247-260): each
+        # window of AVD_TEMPORAL_WINDOW frames (default 32, the trained
+        # sequence lengths) is one forward with its padded tail masked out
+        # of attention, so scores do not depend on the clip's length
+        probs.clip_window = max(1, int(os.getenv("AVD_TEMPORAL_WINDOW",
+                                                 "32")))
+    else:
+        params = family.cast_for_inference(params, dev)
+
+        @torch.inference_mode()
+        def probs(frames_f32: torch.Tensor) -> torch.Tensor:
+            return _sigmoid(family.forward(params, frames_f32, cfg), temp)
     return cfg, params, probs, source
 
 
@@ -200,8 +245,8 @@ def input_size(device=None) -> int:
 
 def clip_window(device=None):
     """Fixed scoring-window length of clip-based families (loads the
-    bundle).  None for the per-frame ViT, the one family ported, whose
-    scores do not depend on grouping."""
+    bundle); None for the per-frame families, whose scores do not depend
+    on grouping."""
     return getattr(_bundle(device)[2], "clip_window", None)
 
 
@@ -236,19 +281,37 @@ def detector_timeline(frames_bgr: np.ndarray, device=None) -> Optional[dict]:
                           device)
 
 
+def _pad(batch: np.ndarray, size: int) -> np.ndarray:
+    """``batch`` with its last frame repeated up to ``size`` frames."""
+    n = batch.shape[0]
+    if size == n:
+        return batch
+    return np.concatenate([batch, np.repeat(batch[-1:], size - n, axis=0)])
+
+
 def _score_prepped(batch: np.ndarray, device=None) -> dict:
-    """Score a prepped [N, size, size, 3] RGB f32 batch: padded to a
-    power-of-two bucket with the last frame repeated, one forward pass,
-    one fetch of the first N probabilities."""
+    """Score a prepped [N, size, size, 3] RGB f32 batch.  Per-frame
+    families: padded to a power-of-two bucket with the last frame
+    repeated, one forward pass, one fetch of the first N probabilities.
+    Clip families: one forward per fixed window, the tail window padded
+    the same way and its padding masked out of attention."""
     dev = device_mod.resolve(device)
     _, _, probs_fn, source = _bundle(dev)
+    window = getattr(probs_fn, "clip_window", None)
+    if window:
+        outs = []
+        for s in range(0, batch.shape[0], window):
+            chunk = batch[s:s + window]
+            k = chunk.shape[0]
+            x = torch.from_numpy(np.ascontiguousarray(_pad(chunk, window)))
+            outs.append(probs_fn(x.to(dev), k)[:k])
+        p = torch.cat(outs).cpu().numpy()
+        return {"timeline": [float(x) for x in p], "weights": source}
     n = batch.shape[0]
     bucket = 1
     while bucket < n:
         bucket *= 2
-    if bucket != n:
-        batch = np.concatenate(
-            [batch, np.repeat(batch[-1:], bucket - n, axis=0)])
+    batch = _pad(batch, bucket)
     p = probs_fn(torch.from_numpy(np.ascontiguousarray(batch)).to(dev))
     return {"timeline": [float(x) for x in p[:n].cpu().numpy()],
             "weights": source}

@@ -28,8 +28,8 @@ Phases, in order; any failure exits non-zero before the result line:
    end-to-end run, with the table of kernels by device time written to
    ``chiprun_out/torch_profile_window.txt``;
 8. mha: the attention kernels against their plain version at the
-   detector's shapes ([256,6,197,64], [12,6,197,64], [8,4,17,64]) and an
-   odd one (atol/rtol 2e-2 on bf16), with kernel, plain and
+   detector's shapes ([256,6,197,64], ``moe_small``'s [256,4,17,64],
+   [12,6,197,64], [8,4,17,64]) and an odd one (atol/rtol 2e-2 on bf16), with kernel, plain and
    ``scaled_dot_product_attention`` times and the bound; the same on
    large scores (q and k times 8); then token counts
    at the edges of the 16-key tiles (16, 17, 32, 33, 65, 197, 208) at head
@@ -131,7 +131,25 @@ Phases, in order; any failure exits non-zero before the result line:
     ``/debug/trace/start``, one upload of the 1080p mp4, ``/stop``: the
     Chrome trace names ``warp_bilinear_kernel``, and the request launched
     warp and blur+solve 48 times each (``served_launches`` in the kernels
-    line).
+    line);
+24. the detector families: the 145 frames resized to each family's input
+    and scored with ``cnn_small``, ``temporal_small``, ``moe_small`` (with
+    and without ``AVD_ATTN_FUSED=1``), int8 on ``detector_full`` and
+    ``cnn_small`` (all shipped) and the seeded ``full`` presets of the CNN
+    and the temporal family (224 px): the weights label, card against CPU
+    logits on 8 frames within 2e-2, every MoE token's expert equal on
+    both, ``mha`` launched depth times with the kernel and never without,
+    and a scoring call's kernels and host→device copy ms, device ops and
+    frames/s (``chiprun_out/families.json``);
+25. temporal windows on the card: the streaming slabs of 64 against the
+    batch path, and with 8-frame windows a 40-frame clip against the first
+    40 frames of a 70-frame one (|Δ| <= 1e-6 both);
+26. ``analyze_path`` on the 1080p mp4 with ``AVD_DETECTOR_ARCH=cnn``,
+    ``temporal``, ``AVD_DETECTOR_PRESET=moe_small`` and
+    ``AVD_DETECTOR_QUANT=1`` (no ``detector_error``, every frame scored,
+    wall s and frames/s), then a spliced clip of blob scenes (AI-like from
+    frame 20) uploaded to the in-process app with the temporal family and
+    ``AVD_DETECTOR_BLEND=1``: its envelope equals the in-process one.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It needs the repository beside it
@@ -162,6 +180,7 @@ FRAMES_MAIN = 145
 FRAMES_FUSED = 61            # one full 49-frame window and a 13-frame tail
 VIT_DEPTH, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM = 6, 6, 197, 64  # "full"
 VIT_BUCKET = 256             # 145 frames padded to the power-of-two bucket
+MOE_MHA_SHAPE = (VIT_BUCKET, 4, 17, 64)  # moe_small: [B, heads, tokens, D]
 H_MAIN, W_MAIN = 1080, 1920
 DEV = "cuda"
 
@@ -643,8 +662,8 @@ def phase_mha(gen):
     from avd_tpu_torch.ops.kernels import attention
     rows, max_err = [], 0.0
     shapes = [(VIT_BUCKET, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM),
-              (12, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM), (8, 4, 17, 64),
-              (2, 3, 17, 8)]
+              MOE_MHA_SHAPE, (12, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM),
+              (8, 4, 17, 64), (2, 3, 17, 8)]
     for b, h, t, d in shapes:
         qkv = torch.randn((b, t, 3, h, d), generator=gen,
                           device=DEV).bfloat16()
@@ -1991,7 +2010,6 @@ def phase_served(wav_path, card_name):
         master.wait_log("warmup complete", 3)
         text = master.wait_log("serving on", 3)
         spawned = re.findall(r"\[master\] spawned worker (\d+)", text)
-        replacement = spawned[2]
         for _ in range(12):
             c.health()
         same_served(c.analyze(wav_path).raw, refs[wav_path],
@@ -2000,11 +2018,15 @@ def phase_served(wav_path, card_name):
         text = master.stop()
     check("Traceback" not in text and "warmup skipped" not in text,
           f"master log:\n{text[-3000:]}")
-    served = re.findall(rf"\[worker {replacement}\] exiting after (\d+) "
-                        "requests", text)
-    check(served and int(served[0]) >= 1,
-          f"replacement {replacement} served {served} requests:\n"
+    # both first workers can reach their budget together, and then two
+    # replacements start; the kernel hands the shared socket's requests to
+    # whichever accepts first, so one of them may serve none
+    counts = {pid: re.findall(rf"\[worker {pid}\] exiting after (\d+) "
+                              "requests", text) for pid in spawned[2:]}
+    busy = [pid for pid, n in counts.items() if n and int(n[0]) >= 1]
+    check(busy, f"no replacement served a request ({counts}):\n"
           f"{text[-3000:]}")
+    replacement, served = busy[0], counts[busy[0]]
     log(f"served (master, 2 workers on the card): both warm in "
         f"{boot_s:.2f} s; /readyz cuda {ready['cuda']}; WAV |Δai_score| "
         f"{diffs[os.path.basename(wav_path)][0]:.3g}, timeline |Δ| "
@@ -2137,6 +2159,337 @@ def phase_trace_route(ref_mp4):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the detector families
+# ---------------------------------------------------------------------------
+
+# (name, settings, shipped checkpoint or None for seeded weights); every
+# one scores with AVD_DETECTOR=1
+FAMILY_MODES = [
+    ("cnn_small", {"AVD_DETECTOR_ARCH": "cnn"}, "cnn_small"),
+    ("temporal_small", {"AVD_DETECTOR_ARCH": "temporal"}, "temporal_small"),
+    ("moe_small", {"AVD_DETECTOR_PRESET": "moe_small"}, "moe_small"),
+    ("moe_small fused", {"AVD_DETECTOR_PRESET": "moe_small",
+                         "AVD_ATTN_FUSED": "1"}, "moe_small"),
+    ("vit full int8", {"AVD_DETECTOR_QUANT": "1"}, "detector_full"),
+    ("cnn_small int8", {"AVD_DETECTOR_ARCH": "cnn",
+                        "AVD_DETECTOR_QUANT": "1"}, "cnn_small"),
+    ("cnn full", {"AVD_DETECTOR_ARCH": "cnn",
+                  "AVD_DETECTOR_PRESET": "full"}, None),
+    ("temporal full", {"AVD_DETECTOR_ARCH": "temporal",
+                       "AVD_DETECTOR_PRESET": "full"}, None),
+]
+_FAMILY_ENV = ("AVD_DETECTOR", "AVD_DETECTOR_ARCH", "AVD_DETECTOR_PRESET",
+               "AVD_DETECTOR_QUANT", "AVD_ATTN_FUSED", "AVD_DETECTOR_CKPT",
+               "AVD_DETECTOR_BLEND", "AVD_TEMPORAL_WINDOW",
+               "AVD_DETECTOR_SLAB", "AVD_STREAM")
+CARD_CPU_FRAMES = 8          # frames of the card-against-CPU logits
+
+
+def _family_env(settings):
+    """AVD_DETECTOR=1 and ``settings``; every other detector setting off."""
+    env = {k: None for k in _FAMILY_ENV}
+    env.update({"AVD_DETECTOR": "1"}, **settings)
+    _set_env(**env)
+
+
+def _logits(bundle, batch, dev):
+    """The logits of the bundle's config and parameters for a prepped
+    [n, s, s, 3] batch on ``dev``: the int8 forward, a per-frame family's
+    forward, or one masked temporal window (the batch padded with its
+    last frame to the window)."""
+    import torch
+    from avd_tpu_torch.models import cnn, detector, quant, scoring, temporal
+    cfg, params, probs, source = bundle
+    n = batch.shape[0]
+    window = getattr(probs, "clip_window", None)
+    x = batch if not window else scoring._pad(batch, window)
+    x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    with torch.inference_mode():
+        if source.endswith("+int8"):
+            out = quant.forward(params, x, cfg)
+        elif window:
+            mask = torch.arange(window, device=dev) < n
+            out = temporal.forward_clip(params, x, cfg, mask=mask)
+        else:
+            family = {detector.ViTConfig: detector,
+                      cnn.CNNConfig: cnn}[type(cfg)]
+            out = family.forward(params, x, cfg)
+    return out[:n, 0].float().cpu()
+
+
+def phase_families(frames):
+    """Each family and mode scoring the 145 1080p pan frames on the card:
+    card against CPU logits (2e-2), the MoE routes, the weights label, a
+    scoring call's kernels and host→device copy under the profiler,
+    launches and frames/s."""
+    import torch
+    from avd_tpu_torch.models import detector, scoring
+    cuda = torch.device(DEV)
+    resized, rows = {}, {}
+    try:
+        for name, settings, shipped in FAMILY_MODES:
+            _family_env(settings)
+            bundle = scoring._bundle(cuda)
+            cfg, _, probs, source = bundle
+            size = cfg.image_size
+            if size not in resized:
+                resized[size] = scoring.resize_frames(frames, size)
+            rs = resized[size]
+            if shipped:
+                want = scoring._shipped_ckpt(
+                    settings.get("AVD_DETECTOR_ARCH", "vit"),
+                    settings.get("AVD_DETECTOR_PRESET",
+                                 "full" if shipped == "detector_full"
+                                 else "small"))
+                check(want is not None and source.startswith(want)
+                      and os.path.basename(want) == shipped,
+                      f"{name}: weights {source}, not {shipped}")
+            else:
+                check(source == "random_init", f"{name}: weights {source}")
+            if settings.get("AVD_DETECTOR_QUANT") == "1":
+                check(source.endswith("+int8"), f"{name}: label {source}")
+            # the scoring call outside any analyzer's except
+            _reset_counters()
+            out = scoring.detector_timeline_resized(rs, device=cuda)
+            launches = _counters()
+            tl = np.asarray(out["timeline"])
+            check(tl.shape == (FRAMES_MAIN,) and np.isfinite(tl).all()
+                  and tl.min() >= 0 and tl.max() <= 1,
+                  f"{name}: timeline {tl.shape}")
+            fused = settings.get("AVD_ATTN_FUSED") == "1"
+            want_mha = cfg.depth if fused else 0
+            check(launches["mha"] == want_mha,
+                  f"{name}: mha launched {launches['mha']} times, expected "
+                  f"{want_mha}")
+            best = None
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scoring.detector_timeline_resized(rs, device=cuda)
+                best = min(best or 1e9, time.perf_counter() - t0)
+            busy, n_dev, avgs = device_profile(
+                lambda: scoring.detector_timeline_resized(rs, device=cuda))
+            h2d_ms, h2d_n = _kernel_ms(avgs, "Memcpy HtoD")
+            window = getattr(probs, "clip_window", None)
+            n_copies = -(-FRAMES_MAIN // window) if window else 1
+            check(h2d_n == n_copies, f"{name}: {h2d_n} host→device copies "
+                  f"in the scoring call's trace, expected {n_copies}")
+
+            # card against CPU on the first frames: logits, MoE routes
+            batch = rs[:CARD_CPU_FRAMES][..., ::-1].astype(np.float32) / 255
+            cpu_bundle = scoring._bundle("cpu")
+            got = _logits(bundle, batch, cuda)
+            ref = _logits(cpu_bundle, batch, "cpu")
+            err, ok = _close(got, ref, 2e-2, 2e-2)
+            check(ok, f"{name}: card and CPU logits differ by {err}")
+            routes = None
+            if getattr(cfg, "n_experts", 0):
+                x = torch.from_numpy(np.ascontiguousarray(batch))
+                with torch.inference_mode():
+                    r_card = detector.expert_indices(bundle[1], x.to(cuda),
+                                                     cfg).cpu()
+                    r_cpu = detector.expert_indices(cpu_bundle[1], x, cfg)
+                routes = int((r_card != r_cpu).sum())
+                check(routes == 0, f"{name}: {routes} of {r_card.numel()} "
+                      "token routes differ between the card and the CPU")
+            rows[name] = {
+                "weights": source, "image_size": size,
+                "kernels_ms": busy - h2d_ms, "h2d_ms": h2d_ms,
+                "h2d_copies": h2d_n, "device_ops": n_dev,
+                "mha_launches": launches["mha"],
+                "frames_per_s": FRAMES_MAIN / best, "call_s": best,
+                "card_cpu_max_abs": err, "routes_differing": routes}
+            log(f"family {name}: weights {source}; scoring call "
+                f"({FRAMES_MAIN} frames at {size}²) {best:.3f} s = "
+                f"{FRAMES_MAIN / best:.2f} frames/s; device: kernels "
+                f"{busy - h2d_ms:.3f} ms, host→device copy {h2d_ms:.3f} ms "
+                f"in {h2d_n} copies, {n_dev} device kernels and copies; mha "
+                f"launches {launches['mha']}; card vs CPU logits max |Δ| "
+                f"{err:.3g} on {CARD_CPU_FRAMES} frames"
+                + (f"; MoE routes differing {routes}" if routes is not None
+                   else ""))
+    finally:
+        _set_env(**{k: None for k in _FAMILY_ENV})
+    return rows
+
+
+def phase_temporal_windows(frames):
+    """The temporal family on the card: the streaming analyzer's slabs of
+    64 give the batch path's timeline (|Δ| <= 1e-6), and with 8-frame
+    windows the first 40 frames score the same in a 40- and a 70-frame
+    clip (tests/test_temporal.py:231-247)."""
+    import torch
+    from avd_tpu_torch.analyzers import video as video_an
+    from avd_tpu_torch.models import scoring
+    cuda = torch.device(DEV)
+    try:
+        _family_env({"AVD_DETECTOR_ARCH": "temporal",
+                     "AVD_DETECTOR_SLAB": str(SLAB)})
+        n = frames.shape[0]
+        acc = video_an._DetAccum(cuda)
+        for i in range(0, n, CHUNK_STREAM):
+            acc.add(frames[i:i + CHUNK_STREAM])
+        stream = acc.result()
+        batch = scoring.detector_timeline(frames, device=cuda)
+        check(stream is not None and acc.error is None,
+              f"temporal streaming: {acc.error}")
+        d_stream = float(np.max(np.abs(np.subtract(stream["timeline"],
+                                                   batch["timeline"]))))
+        check(len(stream["timeline"]) == n and d_stream <= 1e-6,
+              f"temporal streaming vs batch |Δ| {d_stream}")
+        _family_env({"AVD_DETECTOR_ARCH": "temporal",
+                     "AVD_TEMPORAL_WINDOW": "8"})
+        clip = frames[:70]
+        short = scoring.detector_timeline(clip[:40], device=cuda)
+        long = scoring.detector_timeline(clip, device=cuda)
+        d_len = float(np.max(np.abs(np.subtract(short["timeline"][:40],
+                                                long["timeline"][:40]))))
+        check(d_len <= 1e-6, f"temporal window scores depend on the clip's "
+              f"length: |Δ| {d_len}")
+    finally:
+        _set_env(**{k: None for k in _FAMILY_ENV})
+    log(f"temporal windows on the card: streaming (slabs of {SLAB}) vs batch "
+        f"max |Δ| {d_stream:.3g}; 40- vs 70-frame clip (windows of 8) "
+        f"max |Δ| {d_len:.3g} on the first 40 frames")
+    return d_stream, d_len
+
+
+def _smooth(img, sigma):
+    import cv2
+    return cv2.GaussianBlur(img, (0, 0), sigma)
+
+
+def frame_blobs(rng, size, ai_like):
+    """A blob scene of the detector's training curriculum (the "blobs"
+    family of avd_tpu's trainer): AI-like frames are smoothed, saturated
+    and nearly noiseless, camera-like ones crisp with sensor noise."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    base = np.zeros((size, size, 3), np.float32)
+    for _ in range(rng.integers(2, 5)):
+        cx, cy = rng.random(2)
+        r = 0.1 + 0.4 * rng.random()
+        blob = np.exp(-(((xx - cx) ** 2 + (yy - cy) ** 2) / r ** 2))
+        base += blob[..., None] * rng.random(3)
+    base += (0.3 * xx * rng.random() + 0.3 * yy * rng.random())[..., None]
+    base /= max(1e-6, base.max())
+    detail = rng.random((size, size, 3)).astype(np.float32)
+    if ai_like:
+        sigma = 1.2 + 2.0 * rng.random()
+        img = _smooth(base + 0.10 * detail, sigma)
+        img = np.clip(img * (1.05 + 0.15 * rng.random()), 0, 1)
+        img += rng.normal(0, 0.004, img.shape).astype(np.float32)
+    else:
+        img = base + (0.15 + 0.2 * rng.random()) * detail
+        img = np.clip(img, 0, 1)
+        blur = _smooth(img, 1.0)
+        img = np.clip(img + (0.3 * rng.random()) * (img - blur), 0, 1)
+        img += rng.normal(0, 0.01 + 0.02 * rng.random(),
+                          img.shape).astype(np.float32)
+    return img
+
+
+def write_blobs_clip(path, n=64, splice=20, size=64, seed=11):
+    """The spliced clip of the served partial-AI case: camera-like blob
+    frames, AI-like from ``splice`` on, at 2 fps (tests/test_serve.py)."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    frames = np.stack([np.clip(frame_blobs(rng, size, i >= splice), 0, 1)
+                       for i in range(n)])
+    clip = (frames * 255).astype(np.uint8)[..., ::-1]  # RGB→BGR
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 2.0,
+                         (size, size))
+    check(vw.isOpened(), "cv2 cannot write the blobs clip")
+    for f in clip:
+        vw.write(np.ascontiguousarray(f))
+    vw.release()
+    return path
+
+
+def phase_family_paths():
+    """``analyze_path`` on the 1080p mp4 with each family and mode, and one
+    upload of the spliced blobs clip through the in-process app with the
+    temporal family, held to the in-process envelope."""
+    import threading
+    import torch
+    from avd_tpu_torch import pipeline, schema
+    from avd_tpu_torch.client import Client
+    from avd_tpu_torch.serve import app as app_mod
+    from avd_tpu_torch.serve import http as http_mod
+    cuda = torch.device(DEV)
+    check(os.path.exists(MP4_1080P), f"{MP4_1080P} was not written")
+    rows = {}
+    try:
+        for name, settings in (
+                ("cnn", {"AVD_DETECTOR_ARCH": "cnn"}),
+                ("temporal", {"AVD_DETECTOR_ARCH": "temporal"}),
+                ("moe_small", {"AVD_DETECTOR_PRESET": "moe_small"}),
+                ("int8", {"AVD_DETECTOR_QUANT": "1"})):
+            _family_env(settings)
+            secs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                env = pipeline.analyze_path(MP4_1080P, device=cuda)
+                secs.append(time.perf_counter() - t0)
+            schema.validate(env)
+            video = env["video"]
+            for key in ("video_error", "audio_error"):
+                check(key not in env["hints"],
+                      f"analyze_path {name}: {key} {env['hints'].get(key)}")
+            check("detector_error" not in video,
+                  f"analyze_path {name}: detector_error "
+                  f"{video.get('detector_error')}")
+            n = len(video["detector"]["timeline"])
+            check(n == FRAMES_MAIN, f"analyze_path {name}: {n} frames scored")
+            rows[name] = {"wall_s": min(secs), "runs_s": secs,
+                          "frames_per_s": n / min(secs),
+                          "weights": video["detector"]["weights"]}
+            log(f"analyze_path 1080p mp4, {name}: {min(secs):.3f} s (runs "
+                f"{', '.join(f'{t:.3f}' for t in secs)}) = "
+                f"{n / min(secs):.2f} frames/s, weights "
+                f"{video['detector']['weights']}, label "
+                f"{env['result']['label']}")
+
+        path = write_blobs_clip(os.path.join(MEDIA_DIR, "spliced_blobs.mp4"))
+        _family_env({"AVD_DETECTOR_ARCH": "temporal",
+                     "AVD_DETECTOR_BLEND": "1"})
+        ref = pipeline.analyze_path(path, device=cuda)
+        srv = http_mod.make_server(app_mod.build_app(device=cuda),
+                                   "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            c = Client(f"http://127.0.0.1:{srv.server_address[1]}",
+                       timeout=600)
+            served = c.analyze(path).raw
+        finally:
+            srv.shutdown()
+            srv.server_close()
+    finally:
+        _set_env(**{k: None for k in _FAMILY_ENV})
+    d_ai, d_tl = same_served(served, ref, "served blobs clip, temporal")
+    det, det_ref = served["video"]["detector"], ref["video"]["detector"]
+    check("temporal_small" in det["weights"]
+          and det["weights"] == det_ref["weights"],
+          f"served weights {det['weights']}")
+    d_det = float(np.max(np.abs(np.subtract(det["timeline"],
+                                            det_ref["timeline"]))))
+    check(d_det <= 1e-6, f"served detector timeline |Δ| {d_det}")
+    t = np.asarray(det["timeline"])
+    m = len(t)
+    true_ai = np.zeros(m, bool)
+    true_ai[int(round(20 / 64 * m)):] = True
+    iou = float((true_ai & (t > 0.5)).sum() / max(1, (true_ai | (t > 0.5))
+                                                  .sum()))
+    # the splice floor of tests/test_torch_serve.py's served partial-AI case
+    check(iou >= 0.6, f"served blobs clip: splice IoU {iou:.3f} < 0.6")
+    log(f"served blobs clip (temporal, blend 1): envelope equals the "
+        f"in-process one (|Δai_score| {d_ai:.3g}, timeline |Δ| {d_tl:.3g}, "
+        f"detector |Δ| {d_det:.3g}); {m} frames, splice IoU {iou:.3f}, "
+        f"label {served['result']['label']}")
+    rows["served_blobs"] = {"iou": iou, "frames": m}
+    return rows
+
+
 def kernel_entry(name, source, replaces, rows, max_err, launches):
     ms = ROUNDS * sum(r[1] for r in rows)
     plain = ROUNDS * sum(r[2] for r in rows)
@@ -2154,7 +2507,8 @@ def kernel_entry(name, source, replaces, rows, max_err, launches):
 
 def mha_entry(rows, max_err, launches):
     """The attention kernel on the detector path: ``VIT_DEPTH`` launches at
-    the 256-frame bucket per 145-frame clip."""
+    the 256-frame bucket per 145-frame clip (the ``full`` ViT; the MoE
+    scoring call's launches are added as ``moe_small_launches``)."""
     shape, ms, plain, lib, bnd, by = rows[0]
     return {"name": "mha", "route": "cuda",
             "source": "avd_tpu_torch/csrc/attention.cu",
@@ -2215,6 +2569,9 @@ def main():
         ref_mp4 = phase_served(wav_path, torch.cuda.get_device_name(0))
         serve_rows = phase_batching(ref_mp4)
         served_launches = phase_trace_route(ref_mp4)
+        family_rows = phase_families(frames)
+        phase_temporal_windows(frames)
+        path_rows = phase_family_paths()
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -2243,6 +2600,11 @@ def main():
                      "avd_tpu/ops/pallas/blur_solve.py:97", b16_rows,
                      b16_err, bf16_launches["box_blur_solve_bf16"]),
     ]
+    kernels[3]["moe_small_launches"] = \
+        family_rows["moe_small fused"]["mha_launches"]
+    kernels[3]["moe_small_shape_ms"] = {
+        k: v for k, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                             mha_rows[1][1:5])}
     for entry in kernels:
         entry["streaming_launches"] = stream_launches.get(entry["name"], 0)
         entry["served_launches"] = served_launches.get(entry["name"], 0)
@@ -2265,6 +2627,14 @@ def main():
         f"{off['clients_1']['requests_per_s']:.3f}, 4 clients on/off "
         f"{on['clients_4']['requests_per_s']:.3f}/"
         f"{off['clients_4']['requests_per_s']:.3f}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "families.json"), "w") as f:
+        json.dump({"card": card, "scoring": family_rows,
+                   "analyze_path": path_rows}, f, indent=1)
+    log("families: " + "; ".join(
+        f"{k} {r['frames_per_s']:.2f} frames/s (kernels "
+        f"{r['kernels_ms']:.3f} ms, copy {r['h2d_ms']:.3f} ms)"
+        for k, r in family_rows.items()))
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

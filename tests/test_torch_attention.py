@@ -7,7 +7,6 @@ the measured max |Δ| is one bf16 ulp of the output (3.9e-3 at |o| < 1,
 7.8e-3 above).
 """
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -106,12 +105,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 
 def _preset_shape(preset):
-    """(tokens, head dim) of a detector preset, from its dict and the
-    dataclass defaults (``moe_small`` cannot be built yet)."""
-    kw = {f.name: f.default for f in dataclasses.fields(tdetector.ViTConfig)}
-    kw.update(tdetector.PRESETS[preset])
-    tokens = (kw["image_size"] // kw["patch"]) ** 2 + 1
-    return tokens, kw["width"] // kw["heads"]
+    """(tokens, head dim) of a detector preset: ``moe_small`` attends at
+    [B, 4, 17, 64], as ``small`` does."""
+    cfg = tdetector.make_config(preset)
+    return cfg.tokens, cfg.head_dim
 
 
 @pytest.mark.parametrize("preset", sorted(tdetector.PRESETS))

@@ -126,6 +126,46 @@ def test_detector_presets(preset):
     assert tdetector.PRESETS[preset] == jdetector.PRESETS[preset]
 
 
+@pytest.mark.parametrize("arch", ["cnn", "temporal"])
+def test_family_presets_and_defaults(arch):
+    """Each family's presets and config defaults are avd_tpu's.  The port
+    leaves out only the training-only loss weight of the temporal family
+    (``aux_frame_loss``); the training slice adds it back."""
+    import dataclasses
+
+    from avd_tpu import models as jmodels
+    from avd_tpu_torch import models as tmodels
+    j, t = jmodels.family(arch), tmodels.family(arch)
+    assert t.PRESETS == j.PRESETS
+    for preset in j.PRESETS:
+        jc, tc = j.make_config(preset), t.make_config(preset)
+        names = {f.name for f in dataclasses.fields(tc)}
+        assert {f.name for f in dataclasses.fields(jc)} - names == \
+            ({"aux_frame_loss"} if arch == "temporal" else set())
+        assert {n: getattr(jc, n) for n in names} == \
+            {n: getattr(tc, n) for n in names}
+
+
+def test_moe_routing_constants():
+    assert tdetector._ROUTER_GRID == jdetector._ROUTER_GRID
+    j, t = jdetector.make_config("moe_small"), tdetector.make_config(
+        "moe_small")
+    assert t.capacity_factor == j.capacity_factor
+    assert t.expert_capacity == j.expert_capacity == 6
+    for cf in (0.5, 1.0, 2.0):
+        assert tdetector.make_config("moe_small", capacity_factor=cf) \
+            .expert_capacity == jdetector.make_config(
+                "moe_small", capacity_factor=cf).expert_capacity
+
+
+def test_quant_key_lists():
+    from avd_tpu.models import quant as jquant
+    from avd_tpu_torch.models import quant as tquant
+    assert tquant._VIT_LAYER_KEYS == jquant._VIT_LAYER_KEYS
+    assert tquant._CNN_BLOCK_KEYS == jquant._CNN_BLOCK_KEYS
+
+
+
 # ---------------------------------------------------------------------------
 # the file path's copied tables and builders
 # ---------------------------------------------------------------------------

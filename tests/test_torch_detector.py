@@ -8,6 +8,8 @@ checkpoint, 2.8e-3 with the trained ``detector_full`` checkpoint.  The two
 packages round to bf16 at the same places (each product, then its bias);
 what is left is the order of the f32 sums inside the matmuls and the tanh
 GELU, which XLA evaluates in bf16 steps and PyTorch in one f32 step.
+The Switch-MoE configs (tiny here; the shipped ``moe_small`` in
+``tests/test_torch_moe.py``) are held to the same bound.
 """
 
 import dataclasses
@@ -24,8 +26,10 @@ import jax.numpy as jnp
 from avd_tpu.models import detector as jdet
 from avd_tpu.ops.pallas import attention as pattn
 from avd_tpu_torch import models as tmodels
+from avd_tpu_torch.models import cnn as tcnn
 from avd_tpu_torch.models import convert
 from avd_tpu_torch.models import detector as tdet
+from avd_tpu_torch.models import temporal as ttemporal
 
 torch.set_num_threads(2)
 
@@ -118,18 +122,21 @@ def test_layer_norm_and_embed_match():
                                rtol=2e-2)
 
 
-@pytest.mark.parametrize("preset", ["small", "full"])
+@pytest.mark.parametrize("preset", ["small", "full", "moe_small"])
 def test_configs_match(preset):
     j, t = jdet.make_config(preset), tdet.make_config(preset)
     for name in ("image_size", "patch", "width", "depth", "heads",
                  "mlp_ratio", "n_classes", "fused_attn", "n_experts",
-                 "tokens", "head_dim", "mlp_width"):
+                 "capacity_factor", "tokens", "head_dim", "mlp_width"):
         assert getattr(j, name) == getattr(t, name), name
+    if j.n_experts:
+        assert j.expert_capacity == t.expert_capacity
     assert tdet.make_config(preset, fused_attn=True).fused_attn
 
 
 def test_param_shapes_are_the_jax_tree():
-    for kw in (_TINY, dict(jdet.PRESETS["small"]), {}):
+    for kw in (_TINY, dict(jdet.PRESETS["small"]), {},
+               dict(jdet.PRESETS["moe_small"])):
         jp = jdet.init_params(jax.random.PRNGKey(0), jdet.ViTConfig(**kw))
         shapes = tdet.param_shapes(tdet.ViTConfig(**kw))
         want = jax.tree_util.tree_map(lambda a: tuple(a.shape), jp)
@@ -151,15 +158,21 @@ def test_init_params_is_seeded_and_scaled():
     assert torch.isfinite(logits).all()
 
 
-def test_converter_round_trips_through_npz(tmp_path):
-    cfg = tdet.ViTConfig(**_TINY)
+@pytest.mark.parametrize("n_experts", [0, 4])
+def test_converter_round_trips_through_npz(tmp_path, n_experts):
+    cfg = tdet.ViTConfig(**_TINY, n_experts=n_experts)
     params = tdet.init_params(7, cfg)
     path = str(tmp_path / convert.PARAMS_FILE)
-    convert.save_npz(path, params)
+    convert.save_npz(path, params, cfg)
     back = convert.load_npz(path, cfg)
+    bf16 = convert.stored_bf16(cfg)
+    # a dense tree is stored in f32 (the int8 forward quantizes from it);
+    # an MoE tree stores its attention and expert operands as bf16
+    assert bool(bf16) == bool(n_experts)
+    assert not set(bf16) & set(tdet._EMBED)
 
-    def stored(k, v):  # the bf16 operands are stored as bf16 bit patterns
-        return v.bfloat16().float() if k in tdet._BF16 else v
+    def stored(k, v):  # bf16 leaves are stored as bf16 bit patterns
+        return v.bfloat16().float() if k in bf16 else v
 
     assert sorted(back) == sorted(params)
     for k, v in params.items():
@@ -174,6 +187,9 @@ def test_converter_round_trips_through_npz(tmp_path):
     a = tdet.cast_for_inference(params, "cpu")
     b = tdet.cast_for_inference(back, "cpu")
     assert all(torch.equal(a[k], b[k]) for k in a if k != "layers")
+    # an MoE tree keeps the embedding leaves in f32 for its router
+    want = torch.float32 if n_experts else torch.bfloat16
+    assert all(b[k].dtype == want for k in tdet._EMBED)
 
 
 def test_converter_checks_the_tree_against_the_config(tmp_path):
@@ -186,32 +202,51 @@ def test_converter_checks_the_tree_against_the_config(tmp_path):
         convert.from_jax_params(tree, dataclasses.replace(cfg, width=128,
                                                           heads=4))
     path = str(tmp_path / "p.npz")
-    convert.save_npz(path, convert.from_jax_params(tree, cfg))
+    convert.save_npz(path, convert.from_jax_params(tree, cfg), cfg)
     with pytest.raises(ValueError):
         convert.load_npz(path, dataclasses.replace(cfg, depth=1))
-
-
-def test_moe_is_not_ported_and_says_so():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdet.make_config("moe_small")
+    # an MoE tree is not a dense one, nor the other way round
     moe = tdet.ViTConfig(**_TINY, n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdet.init_params(0, moe)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdet.forward({}, torch.zeros((1, 32, 32, 3)), moe)
     jtree = _numpy_tree(jdet.init_params(
         jax.random.PRNGKey(0), jdet.ViTConfig(**_TINY, n_experts=4)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.from_jax_params(jtree, tdet.ViTConfig(**_TINY))
+    with pytest.raises(ValueError, match="unexpected keys"):
+        convert.from_jax_params(jtree, cfg)
+    with pytest.raises(ValueError, match="missing keys"):
+        convert.from_jax_params(tree, moe)
     with pytest.raises(ValueError, match="unknown ViT preset"):
         tdet.make_config("huge")
 
 
-@pytest.mark.parametrize("name", ["cnn", "temporal"])
-def test_other_families_are_not_ported_and_say_so(name):
+@pytest.mark.parametrize("fused", [False, True])
+def test_moe_tiny_matches_avd_tpu(fused):
+    """The Switch-MoE block on a random tiny config: the same top-1 expert
+    for every token of every layer, logits within 2e-2."""
+    jcfg = jdet.ViTConfig(**_TINY, n_experts=4, fused_attn=fused)
+    tcfg = tdet.ViTConfig(**_TINY, n_experts=4, fused_attn=fused)
+    jp = jdet.init_params(jax.random.PRNGKey(2), jcfg)
+    tp = convert.from_jax_params(_numpy_tree(jp), tcfg)
+    frames = _frames(3, 32, seed=6)
+    rx = jdet._router_features(jp, jnp.asarray(frames), jcfg)
+    want_idx = np.stack([np.asarray(jnp.argmax(jnp.round(
+        (rx @ lp["router_w"]) * jdet._ROUTER_GRID), axis=-1))
+        for lp in jp["layers"]])
+    got_idx = tdet.expert_indices(tp, torch.from_numpy(frames), tcfg)
+    np.testing.assert_array_equal(got_idx.numpy(), want_idx)
+    want = _jax_forward(jp, frames, jcfg)
+    got = tdet.forward(tdet.cast_for_inference(tp, "cpu"),
+                       torch.from_numpy(frames), tcfg)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (3, 1)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("name,module", [("cnn", tcnn),
+                                         ("temporal", ttemporal)])
+def test_family_returns_the_ported_module(name, module):
     assert tmodels.FAMILIES == ("vit", "cnn", "temporal")
     assert tmodels.family("vit") is tdet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.family(name)
+    assert tmodels.family(name) is module
+    for attr in ("Config", "PRESETS", "make_config", "param_shapes",
+                 "init_params", "cast_for_inference", "forward"):
+        assert hasattr(module, attr), attr
     with pytest.raises(ValueError, match="unknown model family"):
         tmodels.family("resnet")

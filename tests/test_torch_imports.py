@@ -22,7 +22,7 @@ from avd_tpu_torch import pipeline
 from avd_tpu_torch.analyzers import audio as audio_an
 from avd_tpu_torch.analyzers import video as video_an
 from avd_tpu_torch.ingest import video_reader
-from avd_tpu_torch.models import detector, scoring
+from avd_tpu_torch.models import cnn, detector, scoring, temporal
 from avd_tpu_torch.ops import audio_features, video_features
 from avd_tpu_torch.ops.kernels import attention, blur_solve, flow_iter, warp
 from avd_tpu_torch.serve import app as serve_app
@@ -46,6 +46,9 @@ print(len(names), bad)
 assert not bad, bad
 for n in ("avd_tpu_torch.models", "avd_tpu_torch.models.detector",
           "avd_tpu_torch.models.convert", "avd_tpu_torch.models.scoring",
+          "avd_tpu_torch.models.cnn", "avd_tpu_torch.models.temporal",
+          "avd_tpu_torch.models.quant", "avd_tpu_torch.parallel",
+          "avd_tpu_torch.parallel.attention",
           "avd_tpu_torch.ops.kernels.attention",
           "avd_tpu_torch.ops.kernels.flow_iter",
           "avd_tpu_torch.analyze", "avd_tpu_torch.utils",
@@ -95,7 +98,7 @@ def test_port_imports_no_jax_and_no_avd_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 44, r.stdout
+    assert n_modules >= 49, r.stdout
 
 
 def test_serving_master_imports_no_torch():
@@ -117,6 +120,22 @@ def _frames():
     return np.zeros((2, 64, 64, 3), np.uint8)
 
 
+def _with_env(fn, **env):
+    """``fn()`` with the detector settings ``env``, the bundle rebuilt."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    scoring._bundle.cache_clear()
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        scoring._bundle.cache_clear()
+
+
 _ENTRY_POINTS = {
     "resolve": lambda: device_mod.resolve(),
     "compute_features": lambda: video_features.compute_features(_frames()),
@@ -135,7 +154,20 @@ _ENTRY_POINTS = {
     "cast_for_inference": lambda: detector.cast_for_inference(
         detector.init_params(0, detector.ViTConfig(
             image_size=32, width=64, depth=1, heads=2))),
+    "cnn.cast_for_inference": lambda: cnn.cast_for_inference(
+        cnn.init_params(0, cnn.make_config("small"))),
+    "temporal.cast_for_inference": lambda: temporal.cast_for_inference(
+        temporal.init_params(0, temporal.make_config("small", depth=1,
+                                                     frame_depth=1))),
     "scoring._bundle": lambda: scoring._bundle(),
+    "scoring._bundle[cnn]": lambda: _with_env(scoring._bundle,
+                                              AVD_DETECTOR_ARCH="cnn"),
+    "scoring._bundle[temporal]": lambda: _with_env(
+        scoring._bundle, AVD_DETECTOR_ARCH="temporal"),
+    "scoring._bundle[moe_small]": lambda: _with_env(
+        scoring._bundle, AVD_DETECTOR_PRESET="moe_small"),
+    "scoring._bundle[int8]": lambda: _with_env(scoring._bundle,
+                                               AVD_DETECTOR_QUANT="1"),
     "scoring.input_size": lambda: scoring.input_size(),
     "scoring._score_prepped": lambda: scoring._score_prepped(
         np.zeros((1, 224, 224, 3), np.float32)),

@@ -305,3 +305,97 @@ def test_attention_wrapper_refuses_what_the_kernel_does_not_take(gen):
     big = _qkv(gen, (1, 1, 4000, 64))
     with pytest.raises(ValueError, match="shared memory"):
         attention.mha(*big)
+
+
+# ---------------------------------------------------------------------------
+# the detector families of the serving path
+# ---------------------------------------------------------------------------
+
+def test_mha_kernel_at_the_moe_small_shape(gen):
+    """``moe_small`` with AVD_ATTN_FUSED=1 attends at [B,4,17,64]: a
+    256-frame bucket, through the block's strided qkv views and the
+    head-major entry point."""
+    b, t, h, d = 256, 17, 4, 64
+    qkv = torch.randn((b, t, 3, h, d), generator=gen,
+                      device="cuda").bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert attention.variant(t, d) == "mma"
+    before = attention.LAUNCHES
+    out = attention.attention(q, k, v)
+    assert attention.LAUNCHES == before + 1
+    ref = attention.attention_plain(q, k, v)
+    assert torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    out = attention.mha(qh, kh, vh)
+    assert torch.allclose(out.float(), attention.mha_plain(qh, kh, vh).float(),
+                          atol=2e-2, rtol=2e-2)
+
+
+def _qdense_calls(fam, preset, n_frames):
+    """Every (x, quantized weight, bias) that the int8 forward of ``fam`` at
+    ``preset`` hands ``qdense`` on the card, with the seeded weights."""
+    from avd_tpu_torch.models import quant
+    cfg = fam.make_config(preset)
+    qp = quant.to_device(quant.quantize_params(fam.init_params(0, cfg)),
+                         "cuda")
+    frames = torch.rand((n_frames, cfg.image_size, cfg.image_size, 3),
+                        device="cuda")
+    calls = []
+    real = quant.qdense
+
+    def spy(x, qw, b=None):
+        calls.append((x.clone(), qw, b))
+        return real(x, qw, b)
+
+    quant.qdense = spy
+    try:
+        quant.forward(qp, frames, cfg)
+    finally:
+        quant.qdense = real
+    return calls
+
+
+@pytest.mark.parametrize("arch,preset,n_frames", [
+    ("vit", "full", 2), ("vit", "full", 1), ("cnn", "small", 3),
+    ("cnn", "small", 1), ("vit", "small", 1)])
+def test_int_mm_qdense_equals_the_cpu_int32_path(gen, arch, preset,
+                                                 n_frames):
+    """Every qdense shape of the ViT and CNN int8 forwards: torch._int_mm
+    on the card (rows padded to 17 where fewer) gives the CPU's exact
+    int32 product on the same int8 operands, and qdense's dequantized
+    output bit for bit (every division is a true one on both)."""
+    from avd_tpu_torch import models
+    from avd_tpu_torch.models import quant
+    calls = _qdense_calls(models.family(arch), preset, n_frames)
+    assert calls
+    shapes = set()
+    for x, qw, b in calls:
+        x_cpu = x.cpu()
+        qw_cpu = {k: v.cpu() for k, v in qw.items()}
+        x2 = x_cpu.reshape(-1, x.shape[-1])
+        x_i8 = torch.round(x2 / quant._scale(x2.abs().amax(
+            dim=-1, keepdim=True))).to(torch.int8)
+        assert torch.equal(
+            quant.int_matmul(x_i8.cuda(), qw["w_i8"]).cpu(),
+            quant.int_matmul(x_i8, qw_cpu["w_i8"])), tuple(x.shape)
+        got = quant.qdense(x, qw, b)
+        want = quant.qdense(x_cpu, qw_cpu, None if b is None else b.cpu())
+        assert torch.equal(got.cpu(), want), tuple(x.shape)
+        shapes.add((x.reshape(-1, x.shape[-1]).shape[0],)
+                   + tuple(qw["w_i8"].shape))
+    if (arch, n_frames) == ("cnn", 1):
+        assert any(m <= 16 for m, _, _ in shapes), shapes  # padded rows
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 33, 394])
+def test_int_matmul_is_exact_at_every_row_count(gen, m):
+    from avd_tpu_torch.models import quant
+    x = torch.randint(-127, 128, (m, 64), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (64, 24), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    got = quant.int_matmul(x, w)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, 24)
+    assert torch.equal(got.cpu(), x.cpu().int() @ w.cpu().int())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int_matmul(x[:, :60].contiguous(), w[:60])

@@ -345,6 +345,39 @@ def test_warmup_covers_detector(warm_calls, monkeypatch):
     assert warm_calls == [("warm", cpu), ("detector", (1, 64, 64, 3), cpu)]
 
 
+def test_warmup_scores_one_temporal_window(monkeypatch, capsys):
+    """A temporal worker's warm-up scores one whole window: the one shape
+    every later scoring call has (the tail padded to the window)."""
+    monkeypatch.setenv("AVD_WARMUP", "1")
+    monkeypatch.setenv("AVD_DETECTOR", "1")
+    monkeypatch.setenv("AVD_DETECTOR_ARCH", "temporal")
+    for name in ("AVD_BACKEND", "AVD_BATCH_WINDOW_MS", "AVD_DETECTOR_PRESET",
+                 "AVD_DETECTOR_CKPT", "AVD_TEMPORAL_WINDOW",
+                 "AVD_DETECTOR_QUANT", "AVD_ATTN_FUSED"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(vf, "warm_device", lambda device: None)
+    cfg_mod.reset_config()
+    scoring._bundle.cache_clear()
+    cpu = torch.device("cpu")
+    cfg, params, probs, source = scoring._bundle(cpu)
+    seen = []
+
+    def spy(frames, *n_valid):
+        seen.append((tuple(frames.shape), n_valid))
+        return probs(frames, *n_valid)
+
+    spy.clip_window = probs.clip_window
+    monkeypatch.setattr(scoring, "_bundle",
+                        lambda device=None: (cfg, params, spy, source))
+    try:
+        m._warmup(cpu)
+    finally:
+        cfg_mod.reset_config()
+        scoring._bundle_on.cache_clear()
+    assert "warmup complete" in capsys.readouterr().out
+    assert seen == [((32, 64, 64, 3), (1,))]
+
+
 def test_warmup_skips_detector_when_disabled(warm_calls):
     m._warmup(torch.device("cpu"))
     assert [c[0] for c in warm_calls] == ["warm"]

@@ -5,8 +5,10 @@
   on integer and fractional downscale and on upscale (max |Δ| = 0 gray
   levels at every size here, so the resize moves no logit).
 * The serving gates raise as the JAX package's do
-  (tests/test_pallas_attention.py:66-84); what is not ported raises
-  ``NotImplementedError`` that names ROADMAP.md.
+  (tests/test_pallas_attention.py:66-84, tests/test_temporal.py,
+  tests/test_quant.py); each family and mode builds its bundle on its
+  shipped checkpoint, named as ``avd_tpu`` names it; exported programs,
+  not ported, raise ``NotImplementedError`` that names ROADMAP.md.
 * ``analyze_batch`` with ``AVD_DETECTOR=1`` runs through both packages with
   the same trained checkpoint (``detector_small``, carried across by
   ``tools/torch_convert_weights.py``): detector timeline within 1e-2
@@ -123,13 +125,78 @@ def test_gate_rejects_quant_combo(env):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("AVD_DETECTOR_ARCH", "cnn"), ("AVD_DETECTOR_ARCH", "temporal"),
-    ("AVD_DETECTOR_QUANT", "1"), ("AVD_DETECTOR_PRESET", "moe_small"),
     ("AVD_DETECTOR_EXPORTED", "/nowhere/exported")])
 def test_what_is_not_ported_raises_and_names_the_roadmap(env, name, value):
     env.setenv(name, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tscoring._bundle("cpu")
+
+
+_PORT_WEIGHTS = os.path.join(REPO, "avd_tpu_torch", "models", "weights")
+
+
+@pytest.mark.parametrize("settings,want", [
+    ({"AVD_DETECTOR_ARCH": "cnn"}, ("CNNConfig", 64, "cnn_small", None)),
+    ({"AVD_DETECTOR_ARCH": "temporal"},
+     ("TemporalConfig", 64, "temporal_small", 32)),
+    ({"AVD_DETECTOR_ARCH": "temporal", "AVD_TEMPORAL_WINDOW": "8"},
+     ("TemporalConfig", 64, "temporal_small", 8)),
+    ({"AVD_DETECTOR_PRESET": "moe_small"},
+     ("ViTConfig", 64, "moe_small", None)),
+    ({"AVD_DETECTOR_PRESET": "moe_small", "AVD_ATTN_FUSED": "1"},
+     ("ViTConfig", 64, "moe_small", None)),
+    ({"AVD_DETECTOR_QUANT": "1"},
+     ("ViTConfig", 224, "detector_full+T1.00+int8", None)),
+    ({"AVD_DETECTOR_QUANT": "1", "AVD_DETECTOR_ARCH": "cnn"},
+     ("CNNConfig", 64, "cnn_small+T1.00+int8", None))])
+def test_each_family_and_mode_serves_its_shipped_weights(env, settings,
+                                                         want):
+    """The bundle of each setting: its family's config, the input size, the
+    shipped checkpoint named as avd_tpu names it (the directory aside) and
+    the temporal window."""
+    env.setenv("AVD_DETECTOR", "1")
+    for k, v in settings.items():
+        env.setenv(k, v)
+    kind, size, label, window = want
+    cfg, params, probs, source = tscoring._bundle("cpu")
+    assert type(cfg).__name__ == kind
+    assert tscoring.input_size("cpu") == size
+    assert tscoring.clip_window("cpu") == window
+    assert source.startswith(os.path.join(_PORT_WEIGHTS, label.split("+")[0]))
+    if "+" in label:
+        assert source.endswith(label.split("+", 1)[1])
+    assert getattr(cfg, "fused_attn", False) == \
+        (settings.get("AVD_ATTN_FUSED") == "1")
+    if settings.get("AVD_DETECTOR_PRESET") == "moe_small":
+        assert cfg.n_experts == 4
+        assert params["patch_w"].dtype == torch.float32
+    if settings.get("AVD_DETECTOR_QUANT") == "1":
+        assert source.endswith("+int8")
+        layer = params["layers"][0] if "layers" in params else \
+            params["stages"][0]["blocks"][0]
+        assert any(isinstance(v, dict) and v["w_i8"].dtype == torch.int8
+                   for v in layer.values())
+    frames = np.random.default_rng(0).integers(0, 256, (3, 40, 48, 3),
+                                               np.uint8)
+    out = tscoring.detector_timeline(frames, device="cpu")
+    assert out["weights"] == source and len(out["timeline"]) == 3
+    assert all(0.0 <= p <= 1.0 for p in out["timeline"])
+
+
+@pytest.mark.parametrize("settings,match", [
+    ({"AVD_DETECTOR_ARCH": "temporal", "AVD_DETECTOR_QUANT": "1"},
+     "vit/cnn"),
+    ({"AVD_DETECTOR_PRESET": "moe_small", "AVD_DETECTOR_QUANT": "1"},
+     "MoE"),
+    ({"AVD_DETECTOR_ARCH": "temporal", "AVD_ATTN_FUSED": "1"},
+     "supports the vit family")])
+def test_unsupported_combinations_raise_as_avd_tpu(env, settings, match):
+    for k, v in settings.items():
+        env.setenv(k, v)
+    with pytest.raises(ValueError, match=match):
+        tscoring._bundle("cpu")
+    with pytest.raises(ValueError, match=match):
+        jscoring._bundle()
 
 
 def test_unknown_family_and_preset_raise(env):
@@ -298,7 +365,7 @@ def test_analyze_batch_with_the_detector(env, small_ckpt, blend):
 def test_a_detector_failure_is_reported_not_raised(env):
     frames, meta = _golden()
     env.setenv("AVD_DETECTOR", "1")
-    env.setenv("AVD_DETECTOR_ARCH", "cnn")
+    env.setenv("AVD_DETECTOR_EXPORTED", "/nowhere/exported")  # not ported
     out = tvideo.analyze_batch(treader.FrameBatch(frames, *meta),
                                device="cpu")
     assert out["detector_error"] == "NotImplementedError"

@@ -4,10 +4,10 @@ threaded server: the cases of tests/test_serve.py on the port's app with
 error mapping, the neutral-fallback contract, the admission gate), the
 ``torch.profiler`` trace routes, and the same uploads through
 ``avd_tpu``'s app and the port's on the device path: the same key order
-and label, |Δai_score| <= 1e-3 (tests/test_video_parity.py).
-
-``test_serve.py::test_partial_ai_localization_served`` has no case here:
-it serves the temporal detector family, which the port does not have yet.
+and label, |Δai_score| <= 1e-3 (tests/test_video_parity.py).  The served
+partial-AI case (``test_serve.py::test_partial_ai_localization_served``)
+serves the shipped ``temporal_small`` through the port's ``/analyze`` and
+holds its localization to the JAX test's floors.
 """
 
 import http.client
@@ -18,6 +18,7 @@ import socket
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -667,3 +668,71 @@ def test_upload_windows_go_through_the_batcher(monkeypatch, tmp_path, prep):
     assert got["result"] == ref["result"]
     assert got["video"]["timeline"] == pytest.approx(
         ref["video"]["timeline"], rel=2e-5, abs=1e-5)
+
+
+def test_partial_ai_localization_served(tmp_path, monkeypatch):
+    """tests/test_serve.py:587 on the port's app: a real→AI spliced clip
+    (the blobs frames of ``avd_tpu.models.train``) served with the shipped
+    temporal detector; its detector timeline localizes the splice (IoU
+    floor 0.6), and the fused timeline and peaks split at it."""
+    from avd_tpu.models import train as train_mod
+    from avd_tpu_torch.models import scoring
+
+    # 64 camera-like frames, AI-like from frame 20 (not aligned to the
+    # 32-frame scoring window); at 2 fps only the first `duration`
+    # sampled frames reach the fused timeline
+    rng = np.random.default_rng(11)
+    size, n, splice = 64, 64, 20
+    frames = np.stack([
+        np.clip(train_mod._frame_blobs(rng, size, ai_like=(i >= splice)),
+                0, 1) for i in range(n)])
+    clip = (frames * 255).astype(np.uint8)[..., ::-1]  # RGB→BGR
+    path = fixtures.write_video(tmp_path / "spliced_ai.mp4", clip, fps=2.0)
+
+    monkeypatch.setenv("AVD_BACKEND", "oracle")
+    monkeypatch.setenv("AVD_DETECTOR", "1")
+    monkeypatch.setenv("AVD_DETECTOR_ARCH", "temporal")
+    monkeypatch.setenv("AVD_DETECTOR_BLEND", "1")  # timeline == detector
+    for name in ("AVD_DETECTOR_PRESET", "AVD_DETECTOR_CKPT",
+                 "AVD_DETECTOR_QUANT", "AVD_ATTN_FUSED",
+                 "AVD_TEMPORAL_WINDOW"):
+        monkeypatch.delenv(name, raising=False)
+    config_mod.reset_config()
+    scoring._bundle.cache_clear()
+    srv, port = _serve(app_mod.build_app(device="cpu"))
+    try:
+        with open(path, "rb") as f:
+            payload = f.read()
+        body, headers = _multipart(files={"file": ("s.mp4", payload)})
+        status, _, data = _request(port, "POST", "/analyze", body, headers)
+        assert status == 200
+        env = json.loads(data)
+        det = env["video"].get("detector")
+        assert det and "temporal_small" in det["weights"], env["video"]
+        t = np.asarray(det["timeline"], float)
+        m = len(t)
+        assert m >= 16, f"expected ~2 fps sampling of a 32 s clip, got {m}"
+
+        true_ai = np.zeros(m, bool)
+        true_ai[int(round(splice / n * m)):] = True
+        pred_ai = t > 0.5
+        iou = (true_ai & pred_ai).sum() / max(1, (true_ai | pred_ai).sum())
+        assert iou >= 0.6, (iou, t.round(2).tolist())
+
+        fused_len = len(env["video"]["timeline"])
+        assert splice < fused_len <= m
+        binned = np.asarray(env["timeline_binned"], float)
+        b_split = int(round(splice / fused_len * len(binned)))
+        assert binned[b_split:].mean() - binned[:b_split].mean() > 0.15, \
+            binned.tolist()
+        high_peaks = [i for i in env["peaks"] if i < fused_len
+                      and t[i] > 0.5]
+        low_peaks = [i for i in env["peaks"] if i < fused_len
+                     and t[i] <= 0.5]
+        assert low_peaks and all(i < splice for i in low_peaks), \
+            (env["peaks"], t[:fused_len])
+        assert all(i >= splice for i in high_peaks), (env["peaks"], t)
+    finally:
+        srv.shutdown()
+        config_mod.reset_config()
+        scoring._bundle.cache_clear()

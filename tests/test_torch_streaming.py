@@ -152,7 +152,7 @@ def test_det_accum_flushes_mid_stream(env, slab):
 def test_det_accum_reports_a_detector_failure(env, clip):
     path, meta = clip
     env.setenv("AVD_DETECTOR", "1")
-    env.setenv("AVD_DETECTOR_ARCH", "cnn")
+    env.setenv("AVD_DETECTOR_EXPORTED", "/nowhere/exported")  # not ported
     out = video_an.analyze(path, meta, device="cpu")
     assert out["detector_error"] == "NotImplementedError"
     assert "detector" not in out and out["timeline"] is out["timeline_ai"]

@@ -1,10 +1,13 @@
 """The shipped detector weights as the port's default.
 
-* ``avd_tpu_torch/models/weights/detector_{full,small}/params.npz`` hold
-  what ``tools/torch_convert_weights.py`` writes now from
-  ``avd_tpu/models/weights/``: the same arrays, the bf16 operands as bf16
-  bit patterns, and the bundle built from the file is bit-equal to the one
-  built from the f32 conversion.
+* ``avd_tpu_torch/models/weights/<name>/params.npz`` for the five shipped
+  checkpoints (``detector_full``, ``detector_small``, ``moe_small``,
+  ``cnn_small``, ``temporal_small``) hold what
+  ``tools/torch_convert_weights.py`` writes now from
+  ``avd_tpu/models/weights/``, the family and preset guessed from
+  ``train_meta.json``: the same arrays, the leaves every served mode reads
+  in bf16 as bf16 bit patterns and the rest f32, and the bundle built from
+  the file is bit-equal to the one built from the f32 conversion.
 * With ``AVD_DETECTOR=1`` and no ``AVD_DETECTOR_CKPT`` the port serves
   ``full`` on them (``small`` under ``AVD_DETECTOR_PRESET=small``), named
   as ``avd_tpu`` names its checkpoint, up to the directory; its logits are
@@ -23,8 +26,10 @@ import numpy as np
 import pytest
 import torch
 
+from avd_tpu import models as jmodels
 from avd_tpu.models import detector as jdet
 from avd_tpu.models import scoring as jscoring
+from avd_tpu_torch import models as tmodels
 from avd_tpu_torch.models import convert, detector, scoring
 from tests import fixtures
 
@@ -49,68 +54,107 @@ def env(monkeypatch):
     jscoring._bundle.cache_clear()
 
 
-@pytest.fixture(scope="module")
-def converted(tmp_path_factory):
-    """Both shipped checkpoints, converted now by the tool."""
+# the shipped checkpoints: (family, preset) of each
+SHIPPED = {"detector_full": ("vit", "full"),
+           "detector_small": ("vit", "small"),
+           "moe_small": ("vit", "moe_small"),
+           "cnn_small": ("cnn", "small"),
+           "temporal_small": ("temporal", "small")}
+
+
+def _tool():
     spec = importlib.util.spec_from_file_location(
         "torch_convert_weights",
         os.path.join(REPO, "tools", "torch_convert_weights.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.fixture(scope="module")
+def converted(tmp_path_factory):
+    """The five shipped checkpoints, converted now by the tool, with the
+    family and preset it guesses."""
+    tool = _tool()
     out = {}
-    for preset in ("full", "small"):
-        dst = str(tmp_path_factory.mktemp("w") / f"detector_{preset}")
-        assert tool.main([os.path.join(_JAX_WEIGHTS, f"detector_{preset}"),
-                          dst]) == 0
-        out[preset] = dst
+    for name, (arch, preset) in SHIPPED.items():
+        src = os.path.join(_JAX_WEIGHTS, name)
+        assert tool.guess_arch(src) == arch, name
+        assert tool.guess_preset(src, arch) == preset, name
+        dst = str(tmp_path_factory.mktemp("w") / name)
+        assert tool.main([src, dst]) == 0
+        out[name] = dst
     return out
 
 
-def _flat(tree):
-    out = {k: v for k, v in tree.items() if k != "layers"}
-    for i, lp in enumerate(tree["layers"]):
-        out.update({f"layers.{i}.{k}": v for k, v in lp.items()})
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        elif isinstance(v, list):
+            for i, x in enumerate(v):
+                out.update(_flat(x, f"{prefix}{k}.{i}."))
+        else:
+            out[f"{prefix}{k}"] = v
     return out
 
 
-@pytest.mark.parametrize("preset", ["full", "small"])
-def test_committed_weights_are_what_the_converter_writes(preset, converted):
-    committed = os.path.join(_PORT_WEIGHTS, f"detector_{preset}")
+def test_the_weights_directory_holds_the_five_checkpoints():
+    assert sorted(os.listdir(_PORT_WEIGHTS)) == sorted(SHIPPED)
+    for (arch, preset), name in scoring._SHIPPED.items():
+        assert SHIPPED[name] == (arch, preset)
+        assert scoring._shipped_ckpt(arch, preset) == \
+            os.path.join(_PORT_WEIGHTS, name)
+
+
+@pytest.mark.parametrize("name", sorted(SHIPPED))
+def test_committed_weights_are_what_the_converter_writes(name, converted):
+    arch, preset = SHIPPED[name]
+    cfg = tmodels.family(arch).make_config(preset)
+    bf16 = convert.stored_bf16(cfg)
+    committed = os.path.join(_PORT_WEIGHTS, name)
     assert sorted(os.listdir(committed)) == ["calibration.json",
                                              "params.npz", "train_meta.json"]
     for side in ("calibration.json", "train_meta.json"):
         with open(os.path.join(committed, side), "rb") as a, \
-                open(os.path.join(converted[preset], side), "rb") as b:
+                open(os.path.join(converted[name], side), "rb") as b:
             assert a.read() == b.read(), side
     with np.load(os.path.join(committed, convert.PARAMS_FILE)) as c, \
-            np.load(os.path.join(converted[preset],
+            np.load(os.path.join(converted[name],
                                  convert.PARAMS_FILE)) as n:
         assert sorted(c.files) == sorted(n.files)
-        for name in c.files:
-            key = name.rsplit(".", 1)[-1]
-            want = np.uint16 if key in detector._BF16 else np.float32
-            assert c[name].dtype == want, name
-            np.testing.assert_array_equal(c[name], n[name], err_msg=name)
+        for key in c.files:
+            want = np.uint16 if key.rsplit(".", 1)[-1] in bf16 \
+                else np.float32
+            assert c[key].dtype == want, key
+            np.testing.assert_array_equal(c[key], n[key], err_msg=key)
 
 
-@pytest.mark.parametrize("preset", ["full", "small"])
-def test_bf16_storage_is_exact_for_inference(preset):
+@pytest.mark.parametrize("name", sorted(SHIPPED))
+def test_bf16_storage_is_exact_for_inference(name):
     """The bundle from the committed file equals, bit for bit, the one
-    built from the f32 conversion of the orbax checkpoint."""
-    cfg = detector.make_config(preset)
-    like = jdet.init_params(jax.random.PRNGKey(0), jdet.make_config(preset))
-    tree = jdet.load_checkpoint(os.path.join(_JAX_WEIGHTS,
-                                             f"detector_{preset}"), like)
+    built from the f32 conversion of the orbax checkpoint; each leaf that
+    a served mode reads in f32 is stored in f32."""
+    arch, preset = SHIPPED[name]
+    fam, jfam = tmodels.family(arch), jmodels.family(arch)
+    cfg = fam.make_config(preset)
+    like = jfam.init_params(jax.random.PRNGKey(0), jfam.make_config(preset))
+    tree = jfam.load_checkpoint(os.path.join(_JAX_WEIGHTS, name), like)
     f32 = convert.from_jax_params(jax.tree_util.tree_map(np.asarray, tree),
                                   cfg)
     stored = convert.load_npz(os.path.join(
-        _PORT_WEIGHTS, f"detector_{preset}", convert.PARAMS_FILE), cfg)
-    a = _flat(detector.cast_for_inference(f32, "cpu"))
-    b = _flat(detector.cast_for_inference(stored, "cpu"))
+        _PORT_WEIGHTS, name, convert.PARAMS_FILE), cfg)
+    a = _flat(fam.cast_for_inference(f32, "cpu"))
+    b = _flat(fam.cast_for_inference(stored, "cpu"))
     assert sorted(a) == sorted(b)
-    for name in a:
-        assert a[name].dtype == b[name].dtype, name
-        assert torch.equal(a[name], b[name]), name
+    for key in a:
+        assert a[key].dtype == b[key].dtype, key
+        assert torch.equal(a[key], b[key]), key
+    bf16 = convert.stored_bf16(cfg)
+    for key, value in _flat(stored).items():
+        if key.rsplit(".", 1)[-1] not in bf16:
+            assert torch.equal(value, _flat(f32)[key]), key
 
 
 def test_default_bundle_is_the_shipped_full(env):
@@ -152,8 +196,12 @@ def test_logits_match_avd_tpu_default_bundle(env):
     jcfg, jparams, _, jsource, _ = jscoring._bundle()
     assert jsource == os.path.join(_JAX_WEIGHTS, "detector_full") + "+T1.00"
     batch = jscoring._prep_frames(frames, jcfg.image_size)
-    ref = np.asarray(jdet.forward(jparams, jnp.asarray(batch), jcfg)[:, 0],
-                     np.float32)
+    # one jitted program on one device: avd_tpu's bundle shards the tree
+    # over the 8-device test mesh, and op-by-op dispatch of that tree runs
+    # every op as an 8-device program whose rendezvous XLA aborts when
+    # the host is starved (ROADMAP.md §3)
+    ref = np.asarray(jax.jit(jdet.forward, static_argnums=2)(
+        jax.device_get(jparams), jnp.asarray(batch), jcfg)[:, 0], np.float32)
     cfg, params, _, source = scoring._bundle("cpu")
     assert source.replace(_PORT_WEIGHTS, _JAX_WEIGHTS) == jsource
     ours_batch = scoring._prep_frames(frames, cfg.image_size)
