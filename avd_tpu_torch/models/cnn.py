@@ -1,7 +1,8 @@
-"""Per-frame AI-content detector — the ConvNeXt-style CNN, inference only.
+"""Per-frame AI-content detector — the ConvNeXt-style CNN.
 
-Port of the serving half of ``avd_tpu/models/cnn.py``: the config and
-presets, a seeded initialiser, and the forward pass over a parameter dict
+Port of ``avd_tpu/models/cnn.py`` on one device: the config and presets, a
+seeded initialiser, the loss and train step (the ViT's optimizer step over
+this family's loss), and the forward pass over a parameter dict
 with the JAX package's keys and layouts (``[in, out]`` dense weights, the
 depthwise kernel as HWIO ``[k, k, 1, C]``), so a converted checkpoint
 drops in unchanged (``models/convert.py``).
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from avd_tpu_torch import device as device_mod
+from avd_tpu_torch.models import detector
 from avd_tpu_torch.models.detector import _bf16, _ln, _map_tree
 
 
@@ -176,3 +178,24 @@ def forward(params: Dict[str, Any], frames: torch.Tensor,
     g = x.float().mean(dim=(1, 2))
     g = _ln(g, params["ln_f_scale"].float(), params["ln_f_bias"].float())
     return g @ params["head_w"].float() + params["head_b"].float()
+
+
+def loss_fn(params, frames, labels, cfg: CNNConfig,
+            logit_l2: float = 0.0) -> torch.Tensor:
+    """Sigmoid BCE in f32 (labels [B] in {0, 1}) plus the optional
+    logit-scale regulariser (``detector._logit_l2``)."""
+    z = forward(params, frames, cfg)[:, 0]
+    loss = detector._bce(z, labels)
+    if logit_l2:
+        loss = loss + detector._logit_l2(z, logit_l2)
+    return loss
+
+
+def make_train_step(cfg: CNNConfig, optimizer, logit_l2: float = 0.0):
+    """(params, opt_state, frames, labels) → (params, opt_state, loss): the
+    shared optimizer step over this family's loss."""
+    return detector.make_train_step(cfg, optimizer, loss=loss_fn,
+                                    logit_l2=logit_l2)
+
+
+make_optimizer = detector.make_optimizer

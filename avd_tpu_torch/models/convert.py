@@ -6,7 +6,10 @@ names the keys: the ViT and its mixture-of-experts presets, the CNN, the
 temporal transformer) and returns the port's tree: the same keys and
 layouts, as f32 torch tensors on the CPU, every shape checked against the
 config.  ``save_npz`` / ``load_npz`` store a tree as one flat ``.npz``
-(``layers.3.qkv_w``, ``stages.1.blocks.0.dw_w`` style names).
+(``layers.3.qkv_w``, ``stages.1.blocks.0.dw_w`` style names);
+``save_checkpoint`` / ``load_checkpoint`` write and read a checkpoint
+directory (``params.npz``, beside which the trainer puts
+``train_meta.json`` and the eval tool ``calibration.json``).
 
 A leaf that every served mode reads in bf16 (the family's
 ``stored_bf16``) is stored as its bf16 bit patterns (uint16), the rest as
@@ -20,6 +23,7 @@ checkpoint with the JAX package and writes the ``.npz``.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -146,3 +150,22 @@ def load_npz(path: str, cfg) -> Dict[str, Any]:
         for name in z.files:
             _insert(tree, name.split("."), _loaded(z[name]))
     return from_jax_params(tree, cfg, path)
+
+
+def save_checkpoint(ckpt: str, params: Dict[str, Any], cfg) -> None:
+    """Write ``params`` as the checkpoint directory ``ckpt``."""
+    os.makedirs(ckpt, exist_ok=True)
+    save_npz(os.path.join(ckpt, PARAMS_FILE), params, cfg)
+
+
+def load_checkpoint(ckpt: str, cfg) -> Dict[str, Any]:
+    """The f32 tree of the checkpoint directory ``ckpt``; an orbax
+    directory of ``avd_tpu`` raises, naming the converter."""
+    path = os.path.join(ckpt, PARAMS_FILE)
+    if not os.path.exists(path) and os.path.exists(
+            os.path.join(ckpt, "_CHECKPOINT_METADATA")):
+        raise ValueError(
+            f"{ckpt} is an orbax checkpoint of avd_tpu; convert it for the "
+            "port with tools/torch_convert_weights.py and point "
+            "AVD_DETECTOR_CKPT at the output directory")
+    return load_npz(path, cfg)

@@ -1,10 +1,14 @@
-"""Per-frame AI-content detector — a compact ViT, inference only.
+"""Per-frame AI-content detector — a compact ViT.
 
-Port of the serving half of ``avd_tpu/models/detector.py``: the config and
+Port of ``avd_tpu/models/detector.py`` on one device: the config and
 presets, a seeded initialiser, and the forward pass as plain functions over
 a parameter dict with the JAX package's keys and ``[in, out]`` weight
 layout (``x @ w``), so a converted checkpoint drops in unchanged
-(``models/convert.py``).
+(``models/convert.py``); then the training half: the loss (sigmoid BCE,
+the MoE load-balancing term, the logit-scale regulariser), the train step
+over autograd, the optimizer (``models/optim.py``), per-block
+rematerialisation (``cfg.remat``) and the resolution transfer of the
+positional embedding.
 
 Numerics follow the JAX forward step by step: the residual stream and
 every matmul operand are bf16; each product is rounded to bf16 and its
@@ -19,9 +23,11 @@ With ``cfg.n_experts`` the MLP is the Switch mixture of experts of
 ``avd_tpu`` (top-1 routing per example with capacity drops, ``_moe_mlp``),
 routed on f32 features that recompute the embedding end to end
 (``_router_features``) with snapped logits, so every token picks the same
-expert on the card, on the CPU and in ``avd_tpu``.  Training,
-tensor/pipeline/expert parallelism and checkpoint I/O in the orbax format
-are later slices (``ROADMAP.md``).
+expert on the card, on the CPU and in ``avd_tpu``.  Checkpoints are the
+port's ``params.npz`` (``convert.save_checkpoint``); tensor, pipeline and
+expert parallelism are a later slice (``ROADMAP.md``).  ``avd_tpu``'s
+``scan`` option rolls the layers into one ``lax.scan`` to shrink XLA's
+program and computes what the loop computes: the port has no counterpart.
 """
 
 from __future__ import annotations
@@ -33,8 +39,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from avd_tpu_torch import device as device_mod
+from avd_tpu_torch.models import optim
 from avd_tpu_torch.ops.kernels import attention as attention_k
 
 
@@ -56,6 +64,10 @@ class ViTConfig:
     # tokens per expert, the rest dropped onto the residual.
     n_experts: int = 0
     capacity_factor: float = 1.25
+    # Recompute each block's forward in the backward pass
+    # (torch.utils.checkpoint, non-reentrant): activation memory O(1) in
+    # depth for the cost of one more forward.
+    remat: bool = False
 
     @property
     def tokens(self) -> int:
@@ -250,9 +262,11 @@ def expert_indices(params: Dict[str, Any], frames: torch.Tensor,
 
 
 def _moe_mlp(h: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
-             router_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+             router_x: Optional[torch.Tensor] = None):
     """Switch top-1 MoE MLP over per-example token groups
-    (``avd_tpu/models/detector.py:267-327``), inference half.
+    (``avd_tpu/models/detector.py:267-327``) → ``(y, aux)``, ``aux`` the
+    Switch load-balancing loss ``E · mean_b Σ_e frac_e · mean_gate_e``
+    (about 1 when balanced).
 
     ``h``: [B, T, d] bf16 after the LayerNorm.  Each token goes to its
     expert's queue in token order; a token past the expert's capacity C is
@@ -279,13 +293,17 @@ def _moe_mlp(h: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
     z = F.gelu(z + _bf16(lp["moe_in_b"])[None, :, None], approximate="tanh")
     z = torch.einsum("bech,ehd->becd", z, _bf16(lp["moe_out_w"]))
     z = z + _bf16(lp["moe_out_b"])[None, :, None]
-    return torch.einsum("btec,becd->btd", _bf16(comb), z)
+    y = torch.einsum("btec,becd->btd", _bf16(comb), z)
+    frac = onehot.mean(dim=1)                           # [B, E]
+    mean_gate = gate.mean(dim=1)                        # [B, E]
+    return y, E * (frac * mean_gate).sum(dim=-1).mean()
 
 
-def block_forward(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
-                  router_x: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One transformer block on the bf16 residual stream [B, T, width];
-    an MoE layer routes on ``router_x`` (``_router_features``)."""
+def block_forward_aux(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
+                      router_x: Optional[torch.Tensor] = None):
+    """One transformer block on the bf16 residual stream [B, T, width] →
+    ``(x', aux)``, ``aux`` the MoE load-balancing loss (0.0 for a dense
+    layer); an MoE layer routes on ``router_x`` (``_router_features``)."""
     h = _bf16(_ln(x.float(), lp["ln1_scale"], lp["ln1_bias"]))
     qkv = h @ _bf16(lp["qkv_w"]) + _bf16(lp["qkv_b"])
     b, t, _ = qkv.shape
@@ -305,11 +323,12 @@ def block_forward(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
 
     h = _bf16(_ln(x.float(), lp["ln2_scale"], lp["ln2_bias"]))
     if "router_w" in lp:
-        return x + _moe_mlp(h, lp, cfg, router_x)
+        y, aux = _moe_mlp(h, lp, cfg, router_x)
+        return x + y, aux
     h = h @ _bf16(lp["mlp_in_w"]) + _bf16(lp["mlp_in_b"])
     h = F.gelu(h, approximate="tanh")
     h = h @ _bf16(lp["mlp_out_w"]) + _bf16(lp["mlp_out_b"])
-    return x + h
+    return x + h, 0.0
 
 
 def head(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
@@ -320,12 +339,128 @@ def head(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Dict[str, Any], frames: torch.Tensor,
-            cfg: ViTConfig) -> torch.Tensor:
+            cfg: ViTConfig, with_aux: bool = False):
     """ViT forward: [B, H, W, 3] float in [0,1] → [B, n_classes] f32
-    logits, on the device the frames and parameters lie on."""
+    logits, on the device the frames and parameters lie on;
+    ``with_aux`` returns ``(logits, MoE load-balancing loss)`` (0.0 for a
+    dense config).  With
+    ``cfg.remat`` and autograd on, each block is recomputed in the
+    backward pass instead of keeping its activations."""
     x = embed(params, frames, cfg)
     router_x = (_router_features(params, frames, cfg) if cfg.n_experts
                 else None)
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux_total = 0.0
     for lp in params["layers"]:
-        x = block_forward(x, lp, cfg, router_x)
-    return head(params, x)
+        if remat:
+            x, aux = torch_checkpoint.checkpoint(
+                block_forward_aux, x, lp, cfg, router_x,
+                use_reentrant=False)
+        else:
+            x, aux = block_forward_aux(x, lp, cfg, router_x)
+        aux_total = aux_total + aux
+    logits = head(params, x)
+    return (logits, aux_total) if with_aux else logits
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _bce(z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Numerically stable sigmoid BCE-with-logits in f32, mean over the
+    batch."""
+    z = z.float()
+    y = labels.float()
+    per = torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs()))
+    return per.mean()
+
+
+def _logit_l2(z: torch.Tensor, coef: float) -> torch.Tensor:
+    """Score-scale regulariser ``coef · mean(z²)`` on the raw logits: it
+    bounds the training families' margins so an unseen family's scores
+    separate at 0.5 (``avd_tpu/models/detector.py:630-643``)."""
+    return coef * torch.mean(torch.square(z.float()))
+
+
+def loss_fn(params, frames, labels, cfg: ViTConfig,
+            logit_l2: float = 0.0) -> torch.Tensor:
+    """Sigmoid BCE in f32 (labels [B] in {0, 1}); an MoE config adds the
+    Switch load-balancing loss at 0.01, ``logit_l2`` the score-scale
+    regulariser."""
+    out, aux = forward(params, frames, cfg, with_aux=True)
+    z = out[:, 0]
+    loss = _bce(z, labels)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux
+    if logit_l2:
+        loss = loss + _logit_l2(z, logit_l2)
+    return loss
+
+
+def make_train_step(cfg, optimizer, loss=None, logit_l2: float = 0.0):
+    """(params, opt_state, frames, labels) → (params, opt_state, loss).
+
+    ``params`` is the f32 tree; the step takes the gradients of ``loss``
+    (default this module's ``loss_fn``; the CNN and temporal families pass
+    their own) with autograd and lets ``optimizer`` (``optim.AdamW``)
+    update the leaves in place."""
+    loss = loss or loss_fn
+
+    def step(params, opt_state, frames, labels):
+        leaves = optim.leaves_of(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        lval = loss(params, frames, labels, cfg, logit_l2=logit_l2)
+        # a leaf the loss does not use gets a zero gradient, as in JAX
+        grads = torch.autograd.grad(lval, leaves, materialize_grads=True)
+        optimizer.update(leaves, grads, opt_state)
+        return params, opt_state, lval.detach()
+
+    return step
+
+
+make_optimizer = optim.make_optimizer
+
+
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] f32 weights of ``jax.image.resize``'s bilinear
+    (triangle) kernel along one axis, antialiased: the kernel widens by
+    n_in / n_out when the grid shrinks, columns normalised
+    (``jax/_src/image/scale.py::compute_weight_mat``)."""
+    f = np.float32
+    inv = 1.0 / (n_out / n_in)
+    kscale = f(max(inv, 1.0))
+    sample = (np.arange(n_out, dtype=f) + f(0.5)) * f(inv) - f(0.0) - f(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f)[:, None]) / kscale
+    w = np.maximum(f(0), f(1) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f(1)), f(0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f(0)).astype(f)
+
+
+def interpolate_pos_emb(params: Dict[str, Any],
+                        cfg_new: ViTConfig) -> Dict[str, Any]:
+    """Adapt a tree trained at one resolution to ``cfg_new``'s token grid:
+    the cls row of ``pos_emb`` is kept, the patch grid [g, g, d] resized
+    bilinearly as ``jax.image.resize`` does (antialiased when it shrinks)
+    and flattened back.  Every other leaf is resolution-independent and
+    kept as it is; a tree already at the grid is returned unchanged."""
+    pos = params["pos_emb"].detach().float().cpu()
+    t_old = pos.shape[0] - 1
+    g_old = int(round(t_old ** 0.5))
+    g_new = cfg_new.image_size // cfg_new.patch
+    if g_old * g_old != t_old:
+        raise ValueError(f"pos_emb grid {t_old} is not square")
+    if g_new * g_new + 1 == pos.shape[0]:
+        return params
+    w = torch.from_numpy(_resize_weights(g_old, g_new))
+    grid = pos[1:].reshape(g_old, g_old, pos.shape[1])
+    resized = torch.einsum("ijd,ia,jb->abd", grid, w, w)
+    out = dict(params)
+    out["pos_emb"] = torch.cat(
+        [pos[:1], resized.reshape(g_new * g_new, pos.shape[1])]).to(
+            params["pos_emb"].device)
+    return out

@@ -36,8 +36,13 @@ device:
   depend on the clip's length and streaming slabs (``clip_window``) give
   the batch path's scores.
 
-Exported programs (``AVD_DETECTOR_EXPORTED``) and sharded inference are
-not ported yet and raise, naming ``ROADMAP.md``.
+* ``AVD_DETECTOR_EXPORTED=<dir>`` serves an artifact of
+  ``models/export.py`` (the program, its weights and temperature inside)
+  and takes precedence over every setting above; a per-frame program is
+  fed in chunks of its traced batch, the last one padded.  A missing or
+  tampered artifact raises (the analyzers report ``detector_error``).
+
+Sharded inference belongs to the parallelism slice (``ROADMAP.md``).
 
 Every function that touches the model takes ``device=`` and defaults to
 CUDA through ``device.resolve``: without a GPU it raises unless the caller
@@ -136,22 +141,6 @@ def _shipped_ckpt(arch: str, preset: str) -> Optional[str]:
     return path if path and os.path.isdir(path) else None
 
 
-def _load_params(ckpt: str, cfg):
-    """The f32 tree of a converted checkpoint directory."""
-    path = os.path.join(ckpt, convert.PARAMS_FILE)
-    if not os.path.exists(path) and os.path.exists(
-            os.path.join(ckpt, "_CHECKPOINT_METADATA")):
-        raise ValueError(
-            f"{ckpt} is an orbax checkpoint of avd_tpu; convert it for the "
-            "port with tools/torch_convert_weights.py and point "
-            "AVD_DETECTOR_CKPT at the output directory")
-    return convert.load_npz(path, cfg)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
-
-
 def _sigmoid(logits: torch.Tensor, temp: float) -> torch.Tensor:
     """Probabilities of a forward's [B, 1] logits at temperature ``temp``."""
     return torch.sigmoid(logits[:, 0].float() / temp)
@@ -166,9 +155,11 @@ def _bundle(device=None):
 @functools.lru_cache(maxsize=2)
 def _bundle_on(device: str):
     dev = torch.device(device)
-    if os.getenv("AVD_DETECTOR_EXPORTED"):
-        raise _not_ported("AVD_DETECTOR_EXPORTED (ahead-of-time exported "
-                          "detector programs)")
+    exported = os.getenv("AVD_DETECTOR_EXPORTED")
+    if exported:
+        # the artifact carries arch, preset, weights and temperature
+        from avd_tpu_torch.models import export
+        return export.load_bundle(exported, dev)
     arch = _arch()
     quant = os.getenv("AVD_DETECTOR_QUANT", "0") == "1"
     fused = os.getenv("AVD_ATTN_FUSED", "0") == "1"
@@ -189,7 +180,7 @@ def _bundle_on(device: str):
         cfg = dataclasses.replace(cfg, fused_attn=True)
     ckpt = os.getenv("AVD_DETECTOR_CKPT") or _shipped_ckpt(arch, preset)
     if ckpt:
-        params = _load_params(ckpt, cfg)
+        params = convert.load_checkpoint(ckpt, cfg)
         source = ckpt
     else:
         params = family.init_params(0, cfg)
@@ -292,19 +283,23 @@ def _pad(batch: np.ndarray, size: int) -> np.ndarray:
 def _score_prepped(batch: np.ndarray, device=None) -> dict:
     """Score a prepped [N, size, size, 3] RGB f32 batch.  Per-frame
     families: padded to a power-of-two bucket with the last frame
-    repeated, one forward pass, one fetch of the first N probabilities.
-    Clip families: one forward per fixed window, the tail window padded
-    the same way and its padding masked out of attention."""
+    repeated, one forward pass, one fetch of the first N probabilities; an
+    exported program takes chunks of its traced batch, the last padded the
+    same way.  Clip families: one forward per fixed window, the tail
+    window padded the same way and its padding masked out of attention."""
     dev = device_mod.resolve(device)
     _, _, probs_fn, source = _bundle(dev)
     window = getattr(probs_fn, "clip_window", None)
-    if window:
+    fixed = getattr(probs_fn, "fixed_batch", None)
+    if window or fixed:
+        size = window or fixed
         outs = []
-        for s in range(0, batch.shape[0], window):
-            chunk = batch[s:s + window]
+        for s in range(0, batch.shape[0], size):
+            chunk = batch[s:s + size]
             k = chunk.shape[0]
-            x = torch.from_numpy(np.ascontiguousarray(_pad(chunk, window)))
-            outs.append(probs_fn(x.to(dev), k)[:k])
+            x = torch.from_numpy(np.ascontiguousarray(_pad(chunk, size)))
+            outs.append((probs_fn(x.to(dev), k) if window
+                         else probs_fn(x.to(dev)))[:k])
         p = torch.cat(outs).cpu().numpy()
         return {"timeline": [float(x) for x in p], "weights": source}
     n = batch.shape[0]

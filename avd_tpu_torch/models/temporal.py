@@ -1,6 +1,6 @@
 """Temporal detector family — per-frame scores with temporal context.
 
-Port of the serving half of ``avd_tpu/models/temporal.py``: each frame is
+Port of ``avd_tpu/models/temporal.py`` on one device: each frame is
 encoded on its own (patchify, project, ``frame_depth`` spatial transformer
 blocks over its patch tokens, an f32 mean-pool, project), a sinusoidal
 encoding of the frame's index in the clip is added, and ``depth``
@@ -17,9 +17,11 @@ as ``x + o @ w + b`` groups in ``avd_tpu``); LayerNorm, the mean-pool,
 attention, the heads in f32.  The attention core is
 ``parallel/attention.full_attention`` (or ``masked_attention``, which
 keeps padded frames out of every softmax): plain torch ops, since
-``avd_tpu`` computes them in XLA with no Pallas kernel behind them.  The
-time-sharded forward (ring / Ulysses attention) belongs to the
-parallelism slice (``ROADMAP.md``).
+``avd_tpu`` computes them in XLA with no Pallas kernel behind them.
+Training supervises every frame, and the frame embedding directly through
+the per-frame head (``aux_frame_loss``); ``synthetic_sequences`` splices
+the per-frame curriculum into clips.  The time-sharded forward (ring /
+Ulysses attention) belongs to the parallelism slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -28,10 +30,12 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from avd_tpu_torch import device as device_mod
+from avd_tpu_torch.models import detector
 from avd_tpu_torch.models.detector import _bf16, _ln, _map_tree, patchify
 from avd_tpu_torch.parallel import attention as pattn
 
@@ -46,6 +50,11 @@ class TemporalConfig:
     heads: int = 4
     mlp_ratio: int = 4
     n_classes: int = 1        # per-frame binary: AI-generated?
+    # weight of the per-frame head's BCE in training: it supervises the
+    # spatial trunk before any cross-frame attention, so the trunk carries
+    # the smooth-vs-noisy cue itself (avd_tpu/models/temporal.py:75-88);
+    # serving ignores the head
+    aux_frame_loss: float = 0.5
 
     @property
     def head_dim(self) -> int:
@@ -240,3 +249,73 @@ def forward_clip(params: Dict[str, Any], frames: torch.Tensor,
     n_classes] logits (the batch axis is time here); ``mask`` [N] bool."""
     return forward(params, frames[None], cfg,
                    mask=None if mask is None else mask[None])[0]
+
+
+def loss_fn(params, frames, labels, cfg: TemporalConfig,
+            logit_l2: float = 0.0) -> torch.Tensor:
+    """Per-frame sigmoid BCE (labels [B, T] in {0, 1}), the optional
+    logit-scale regulariser, and ``aux_frame_loss`` times the same two
+    terms on the per-frame head."""
+    out, aux = forward(params, frames, cfg, return_aux=True)
+    z = out[..., 0].reshape(-1)
+    y = labels.reshape(-1)
+    loss = detector._bce(z, y)
+    if logit_l2:
+        loss = loss + detector._logit_l2(z, logit_l2)
+    if cfg.aux_frame_loss:
+        za = aux[..., 0].reshape(-1)
+        loss = loss + cfg.aux_frame_loss * detector._bce(za, y)
+        if logit_l2:
+            loss = loss + cfg.aux_frame_loss * detector._logit_l2(za,
+                                                                  logit_l2)
+    return loss
+
+
+def make_train_step(cfg: TemporalConfig, optimizer, logit_l2: float = 0.0):
+    """The shared optimizer step over this family's loss."""
+    return detector.make_train_step(cfg, optimizer, loss=loss_fn,
+                                    logit_l2=logit_l2)
+
+
+make_optimizer = detector.make_optimizer
+
+
+def synthetic_sequences(rng: np.random.Generator, batch: int, t: int,
+                        size: int, families=("blobs",)):
+    """Procedural spliced sequences → (frames [batch, t, size, size, 3]
+    f32, per-frame labels [batch, t] int32): camera-like frames with a
+    random contiguous AI-like span, or none, or all, drawn from pools of
+    the per-frame curriculum (``train.synthetic_batch``); the same numpy
+    draws as ``avd_tpu``'s, so the same seed gives the same clips."""
+    from avd_tpu_torch.models.train import synthetic_batch
+
+    frames = np.empty((batch, t, size, size, 3), np.float32)
+    labels = np.zeros((batch, t), np.int32)
+    need = max(8, (batch * t * 3) // 5)
+    pool_f, pool_l = synthetic_batch(rng, 2 * need, size, families)
+    ai_pool = pool_f[pool_l == 1]
+    cam_pool = pool_f[pool_l == 0]
+    while len(ai_pool) < need or len(cam_pool) < need:
+        short = need - min(len(ai_pool), len(cam_pool))
+        f2, l2 = synthetic_batch(rng, max(32, 2 * short), size, families)
+        ai_pool = np.concatenate([ai_pool, f2[l2 == 1]])
+        cam_pool = np.concatenate([cam_pool, f2[l2 == 0]])
+    ai_i = cam_i = 0
+    for b in range(batch):
+        kind = rng.random()
+        if kind < 0.25:          # all camera
+            s0, s1 = 0, 0
+        elif kind < 0.5:         # all AI
+            s0, s1 = 0, t
+        else:                    # spliced span
+            s0 = int(rng.integers(0, t))
+            s1 = int(rng.integers(s0 + 1, t + 1))
+        for i in range(t):
+            if s0 <= i < s1:
+                frames[b, i] = ai_pool[ai_i % len(ai_pool)]
+                ai_i += 1
+                labels[b, i] = 1
+            else:
+                frames[b, i] = cam_pool[cam_i % len(cam_pool)]
+                cam_i += 1
+    return frames, labels

@@ -149,7 +149,31 @@ Phases, in order; any failure exits non-zero before the result line:
     ``AVD_DETECTOR_QUANT=1`` (no ``detector_error``, every frame scored,
     wall s and frames/s), then a spliced clip of blob scenes (AI-like from
     frame 20) uploaded to the in-process app with the temporal family and
-    ``AVD_DETECTOR_BLEND=1``: its envelope equals the in-process one.
+    ``AVD_DETECTOR_BLEND=1``: its envelope equals the in-process one;
+27. training at full width: the shipped ``detector_full`` fine-tuned with
+    the recipe of its ``train_meta.json`` (224 px, width 384, depth 6,
+    batch 64, lr 1e-4, warmup 300 in a cosine of 2500 steps, logit L2
+    0.02, the three training families; no codec augmentation: no libav*
+    there) for 40 steps from a device pool of 512 samples; train step ms,
+    train frames/s and peak memory with remat off and on; the loss at the
+    shipped weights on the card within 2e-2 of the CPU's on the same
+    batch; remat and plain gradients within 1e-5 relative L2; a run saved
+    at step 10 and resumed against an uninterrupted 20-step run (losses
+    within 1e-5, parameters 1e-6); the held-out family's accuracy and AUC;
+    ``calibration.json`` written by the eval tool; the trained directory
+    served through ``AVD_DETECTOR_CKPT`` on the 145 frames; five steps of
+    ``cnn_small``, ``temporal_small`` and ``moe_small`` at their shipped
+    settings (finite losses, step ms, train frames/s).  Everything is
+    written to a temporary directory;
+28. exported programs: ``detector_full``, ``moe_small`` and
+    ``temporal_small`` exported on the card and served through
+    ``AVD_DETECTOR_EXPORTED`` on the 145 frames (within 1e-3 of the eager
+    bundle, the ``exported:`` label), a tampered artifact raising, one
+    call's ms exported and eager, and ``detector_full`` traced on the CPU
+    and moved to the card;
+29. the detector bench (``tools/torch_bench_detector.py``): frames/s,
+    FLOPs per frame and MFU of each mode at 224 px, batch 64
+    (``chiprun_out/training.json`` holds 27-29).
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It needs the repository beside it
@@ -2182,7 +2206,7 @@ FAMILY_MODES = [
 _FAMILY_ENV = ("AVD_DETECTOR", "AVD_DETECTOR_ARCH", "AVD_DETECTOR_PRESET",
                "AVD_DETECTOR_QUANT", "AVD_ATTN_FUSED", "AVD_DETECTOR_CKPT",
                "AVD_DETECTOR_BLEND", "AVD_TEMPORAL_WINDOW",
-               "AVD_DETECTOR_SLAB", "AVD_STREAM")
+               "AVD_DETECTOR_SLAB", "AVD_STREAM", "AVD_DETECTOR_EXPORTED")
 CARD_CPU_FRAMES = 8          # frames of the card-against-CPU logits
 
 
@@ -2490,6 +2514,411 @@ def phase_family_paths():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training and exported programs
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 40             # steps of the full-width fine-tune
+TRAIN_POOL = 512             # samples in its device-resident pool
+RESUME_AT, RESUME_STEPS = 10, 20  # the resume check: saved at 10 of 20
+TIMED_STEPS = 10             # CUDA-event-timed train steps, each remat mode
+GRAD_FRAMES = 8              # frames of the card-against-CPU gradient check
+FAMILY_STEPS = 5             # steps of each small family at its settings
+HELDOUT_N = 256              # frames of the held-out eval after the fine-tune
+EVAL_TOOL_N = 64             # frames a draw of the eval tool's calibration
+BENCH_BATCH = 64             # the detector bench's batch (224 px)
+EXPORTS = [("vit", "full", "detector_full"), ("vit", "moe_small", "moe_small"),
+           ("temporal", "small", "temporal_small")]
+BENCH_MODES = ("vit", "vit-int8", "cnn", "cnn-int8", "temporal", "vit-fused",
+               "vit-exported")
+
+
+def _recipe(name):
+    """Training arguments of a shipped checkpoint's ``train_meta.json``:
+    its family, widths, batch, learning rate, schedule (the cosine over
+    its whole run: ``schedule_horizon``), logit L2, families and seed."""
+    from avd_tpu_torch.models import scoring
+    with open(os.path.join(scoring._WEIGHTS_DIR, name,
+                           "train_meta.json")) as f:
+        m = json.load(f)
+    kw = dict(arch=m["arch"], batch=m["batch"], lr=m["lr"],
+              image_size=m["image_size"], warmup=m.get("warmup", 0),
+              schedule=m.get("schedule", "const"),
+              schedule_horizon=m["steps"], logit_l2=m["logit_l2"],
+              families=tuple(m["families"]), seed=m["seed"])
+    if m["arch"] == "vit":
+        kw.update(width=m["width"], depth=m["depth"], heads=m["heads"],
+                  experts=m["experts"])
+    return kw
+
+
+def _timed_steps(cfg, family, params, x, y, kw, steps=TIMED_STEPS,
+                 profile=None):
+    """Train steps on the card: {"step_ms": by CUDA events over ``steps``
+    after 3 warm steps, "peak_bytes": of the timed steps}; with
+    ``profile`` (a file name under ``chiprun_out/``) also one step under
+    the profiler: device-busy ms, device ops, and the ms of the GEMMs
+    (cuBLAS) and of the optimizer's multi-tensor kernels."""
+    import torch
+    from avd_tpu_torch.models import optim
+    leaves = optim.leaves_of(params)
+    opt = family.make_optimizer(kw["lr"], steps=kw["schedule_horizon"],
+                                warmup=kw["warmup"], schedule=kw["schedule"])
+    state = opt.init(leaves)
+    step = family.make_train_step(cfg, opt, logit_l2=kw["logit_l2"])
+    for _ in range(3):
+        params, state, loss = step(params, state, x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        params, state, loss = step(params, state, x, y)
+    end.record()
+    end.synchronize()
+    check(np.isfinite(float(loss)), f"train step loss {float(loss)}")
+    out = {"step_ms": start.elapsed_time(end) / steps,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if profile:
+        busy, n_dev, avgs = device_profile(lambda: step(params, state, x, y))
+        gemm = sum(_kernel_ms(avgs, k)[0] for k in ("gemm", "nvjet",
+                                                    "xmma", "cutlass"))
+        out.update(busy_ms=busy, device_ops=n_dev, gemm_ms=gemm,
+                   optimizer_ms=_kernel_ms(avgs, "multi_tensor_apply")[0])
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", profile), "w") as f:
+            f.write(avgs.table(sort_by="self_device_time_total",
+                               row_limit=40))
+    return out
+
+
+def phase_training(fb):
+    """Phase 27: the shipped ``detector_full`` fine-tuned on the card with
+    its own recipe (no codec augmentation: no libav* there), step time and
+    peak memory with remat on and off, card against CPU loss and
+    gradients, remat against plain gradients, resume against an
+    uninterrupted run, the held-out eval, calibration by the eval tool,
+    the trained directory served; then a few steps of each small shipped
+    family."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from avd_tpu_torch import models
+    from avd_tpu_torch.analyzers import video as video_an
+    from avd_tpu_torch.models import convert, detector, optim, scoring, train
+    from tools import torch_eval_detector
+    cuda = torch.device(DEV)
+    shipped = scoring._shipped_ckpt("vit", "full")
+    check(shipped is not None, "no shipped detector_full")
+    kw = _recipe("detector_full")
+    rows = {"recipe": {k: (list(v) if isinstance(v, tuple) else v)
+                       for k, v in kw.items()}}
+    cfg = detector.make_config("full")
+    check((cfg.image_size, cfg.width, cfg.depth, cfg.heads) ==
+          (kw["image_size"], kw["width"], kw["depth"], kw["heads"]),
+          f"recipe {kw} is not the full preset")
+    base = convert.load_checkpoint(shipped, cfg)
+    f, y = train.synthetic_batch(np.random.default_rng(5), kw["batch"],
+                                 cfg.image_size, kw["families"])
+    x, lab = torch.from_numpy(f).to(cuda), torch.from_numpy(y).to(cuda)
+    with torch.no_grad():
+        cpu_loss = float(detector.loss_fn(base, torch.from_numpy(f),
+                                          torch.from_numpy(y), cfg,
+                                          logit_l2=kw["logit_l2"]))
+    grads = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        params = _on_device(base, cuda)
+        loss, grads[remat] = _loss_and_grads(detector, c, params, x, lab,
+                                             kw["logit_l2"])
+        t = _timed_steps(c, detector, params, x, lab, kw,
+                         profile=None if remat else "train_step_profile.txt")
+        ms = t["step_ms"]
+        rows[f"remat_{'on' if remat else 'off'}"] = dict(
+            t, frames_per_s=kw["batch"] / ms * 1e3, loss=loss)
+        log(f"train step, full ViT, batch {kw['batch']} at "
+            f"{cfg.image_size}², remat {'on' if remat else 'off'}: "
+            f"{ms:.3f} ms = {kw['batch'] / ms * 1e3:.1f} train frames/s, "
+            f"peak {t['peak_bytes'] / 2**30:.3f} GiB; loss at the shipped "
+            f"weights {loss:.6f}"
+            + ("" if remat else
+               f"; one step on the device: {t['busy_ms']:.3f} ms busy in "
+               f"{t['device_ops']} ops (GEMMs {t['gemm_ms']:.3f} ms, "
+               f"optimizer {t['optimizer_ms']:.3f} ms), idle share "
+               f"{1 - t['busy_ms'] / ms:.4f}"))
+    d_loss = abs(rows["remat_off"]["loss"] - cpu_loss)
+    check(d_loss <= 1e-4, f"card loss {rows['remat_off']['loss']} vs CPU "
+          f"{cpu_loss}: |Δ| {d_loss}")
+    rel = max(_rel_l2(a, b) for a, b in zip(grads[True], grads[False]))
+    check(rel <= 1e-5, f"remat gradients differ: relative L2 {rel}")
+    # the backward against the CPU's on GRAD_FRAMES frames of the batch,
+    # each leaf within the relative L2 the CPU is held to against JAX, at
+    # a random init: at the shipped weights bf16's rounding alone moves
+    # the small gradients of the well-fit model by up to 0.1 (the CPU
+    # test test_full_width_bf16_gradients_against_f32), which would hide
+    # a fault of the card's backward
+    n = GRAD_FRAMES
+    init = detector.init_params(0, cfg)
+    _, g_cpu = _loss_and_grads(detector, cfg, _on_device(init, "cpu"),
+                               torch.from_numpy(f[:n]),
+                               torch.from_numpy(y[:n]), kw["logit_l2"])
+    _, g_card = _loss_and_grads(detector, cfg, _on_device(init, cuda),
+                                x[:n], lab[:n], kw["logit_l2"])
+    rels = [_rel_l2(a.cpu(), b) for a, b in zip(g_card, g_cpu)]
+    worst = int(np.argmax(rels))
+    check(rels[worst] <= 3e-2, f"card gradients against the CPU's: leaf "
+          f"{worst} relative L2 {rels[worst]}")
+    rows.update(cpu_loss=cpu_loss, card_cpu_loss_abs=d_loss,
+                remat_grad_rel_l2=rel, card_cpu_grad_rel_l2=rels[worst],
+                card_cpu_grad_worst_leaf=worst)
+    log(f"first-step loss card {rows['remat_off']['loss']:.6f} vs CPU "
+        f"{cpu_loss:.6f} (|Δ| {d_loss:.3g}); remat vs plain gradients "
+        f"relative L2 {rel:.3g}; card vs CPU gradients at a random init "
+        f"on {n} frames, {len(rels)} leaves: relative L2 at most "
+        f"{rels[worst]:.3g} (leaf {worst}), median "
+        f"{float(np.median(rels)):.3g}")
+
+    tmp = tempfile.mkdtemp(prefix="avd_train_")
+    try:
+        ck = os.path.join(tmp, "fine_tuned")
+        t0 = time.perf_counter()
+        params, losses = train.train(
+            steps=TRAIN_STEPS, out=ck, init_from=shipped,
+            cache_samples=TRAIN_POOL, log_every=10,
+            device=cuda, **kw)
+        wall = time.perf_counter() - t0
+        check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
+              f"fine-tune losses {losses}")
+        rows["fine_tune"] = {"losses": losses, "wall_s": wall}
+        log(f"fine-tune: {TRAIN_STEPS} steps from {shipped} in {wall:.1f} s "
+            f"(pool of {TRAIN_POOL} and eval included); loss "
+            f"{losses[0]:.4f} → {losses[-1]:.4f}")
+
+        # resume: saved at RESUME_AT of RESUME_STEPS, against one run
+        small = dict(kw, cache_samples=128, log_every=0,
+                     device=cuda)
+        straight, l_straight = train.train(steps=RESUME_STEPS,
+                                           init_from=shipped, **small)
+        rk = os.path.join(tmp, "resume")
+        _, l_first = train.train(steps=RESUME_AT, out=rk, init_from=shipped,
+                                 **small)
+        resumed, l_rest = train.train(steps=RESUME_STEPS, out=rk,
+                                      resume=True, **small)
+        d_res_loss = float(np.max(np.abs(np.subtract(l_first + l_rest,
+                                                     l_straight))))
+        d_res_param = max(float((a - b).abs().max()) for a, b in zip(
+            optim.leaves_of(straight), optim.leaves_of(resumed)))
+        check(d_res_loss <= 1e-5 and d_res_param <= 1e-6,
+              f"resumed run differs: losses |Δ| {d_res_loss}, parameters "
+              f"|Δ| {d_res_param}")
+        rows["resume"] = {"loss_abs": d_res_loss, "param_abs": d_res_param}
+        log(f"resume at step {RESUME_AT} of {RESUME_STEPS} against the "
+            f"uninterrupted run: losses max |Δ| {d_res_loss}, parameters "
+            f"max |Δ| {d_res_param}")
+
+        acc, auc = train.evaluate(params, cfg, n=HELDOUT_N,
+                                  families=(train.HELDOUT_FAMILY,),
+                                  device=cuda)
+        rows["heldout"] = {"acc": acc, "auc": auc}
+        _, fams, _, calib, _ = torch_eval_detector.eval_checkpoint(
+            "vit", "full", ck, n=EVAL_TOOL_N, jpeg_qualities=(), h264_crfs=(),
+            device=cuda)
+        torch_eval_detector.write_calibration(ck, calib, 999)
+        rows["calibration"] = calib
+        log(f"held-out {train.HELDOUT_FAMILY}: accuracy {acc:.3f} AUC "
+            f"{auc:.3f}; eval tool: T {calib['temperature']:.3f} "
+            f"(draws {[d['kind'] for d in calib['fit']['draws']]}), "
+            + ", ".join(f"{k} AUC {v[1]:.3f}" for k, v in fams.items()))
+
+        _set_env(AVD_DETECTOR="1", AVD_DETECTOR_CKPT=ck,
+                 AVD_DETECTOR_PRESET=None, AVD_ATTN_FUSED=None,
+                 AVD_DETECTOR_ARCH=None, AVD_DETECTOR_BLEND=None)
+        try:
+            out = video_an.analyze_batch(fb, device=cuda)
+        finally:
+            _set_env(AVD_DETECTOR=None, AVD_DETECTOR_CKPT=None)
+        check("detector_error" not in out,
+              f"trained checkpoint: detector_error {out.get('detector_error')}")
+        tl = np.asarray(out["detector"]["timeline"])
+        check(tl.shape == (FRAMES_MAIN,) and np.isfinite(tl).all()
+              and out["detector"]["weights"].startswith(ck),
+              f"trained checkpoint served {tl.shape}, weights "
+              f"{out['detector']['weights']}")
+        log(f"trained checkpoint served through AVD_DETECTOR_CKPT: "
+            f"{FRAMES_MAIN} frames, weights {out['detector']['weights']}")
+
+        for name in ("cnn_small", "temporal_small", "moe_small"):
+            fk = _recipe(name)
+            fam_mod = models.family(fk["arch"])
+            _, fam_losses = train.train(steps=FAMILY_STEPS,
+                                        cache_samples=256, log_every=0,
+                                        device=cuda, **fk)
+            check(np.isfinite(fam_losses).all(),
+                  f"{name}: losses {fam_losses}")
+            _, fcfg = train._config(fk["arch"], fk["image_size"],
+                                    fk.get("width", 256), fk.get("depth", 4),
+                                    fk.get("heads", 4), fk.get("experts", 0),
+                                    False)
+            rng = np.random.default_rng(6)
+            if fk["arch"] == "temporal":
+                fx, fy = fam_mod.synthetic_sequences(
+                    rng, fk["batch"], 8, fk["image_size"], fk["families"])
+                n_frames = fk["batch"] * 8
+            else:
+                fx, fy = train.synthetic_batch(rng, fk["batch"],
+                                               fk["image_size"],
+                                               fk["families"])
+                n_frames = fk["batch"]
+            fp = _on_device(fam_mod.init_params(fk["seed"], fcfg), cuda)
+            t = _timed_steps(
+                fcfg, fam_mod, fp, torch.from_numpy(fx).to(cuda),
+                torch.from_numpy(fy).to(cuda), fk, steps=5)
+            ms = t["step_ms"]
+            rows[name] = dict(t, losses=fam_losses,
+                              frames_per_s=n_frames / ms * 1e3)
+            log(f"train {name}: losses {fam_losses[0]:.4f} → "
+                f"{fam_losses[-1]:.4f}; step {ms:.3f} ms = "
+                f"{n_frames / ms * 1e3:.1f} train frames/s, peak "
+                f"{t['peak_bytes'] / 2**30:.3f} GiB")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
+def _loss_and_grads(family, cfg, params, x, y, logit_l2):
+    """(loss, f32 gradient of every leaf) of ``family.loss_fn`` at
+    ``params``, which are left without ``requires_grad``."""
+    import torch
+    from avd_tpu_torch.models import optim
+    leaves = optim.leaves_of(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = family.loss_fn(params, x, y, cfg, logit_l2=logit_l2)
+    grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
+    for p in leaves:
+        p.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def _rel_l2(a, b):
+    import torch
+    return float(torch.linalg.norm(a - b) / max(torch.linalg.norm(b), 1e-30))
+
+
+def _on_device(tree, dev):
+    """A detached f32 copy of a parameter tree on ``dev``."""
+    import torch
+    from avd_tpu_torch.models.detector import _map_tree
+    return _map_tree(lambda _, v: v.detach().to(dev, torch.float32).clone(),
+                     tree)
+
+
+def phase_exported(frames):
+    """Phase 28: ``detector_full``, ``moe_small`` and ``temporal_small``
+    exported on the card and served through ``AVD_DETECTOR_EXPORTED`` on
+    the 145 frames against the eager bundle (1e-3); a tampered artifact
+    raises; the exported call's ms, device-busy ms and device ops against
+    the eager call's; a program traced on the CPU, moved to the card."""
+    import shutil
+    import tempfile
+
+    import torch
+    from avd_tpu_torch.models import export, scoring
+    cuda = torch.device(DEV)
+    rows = {}
+    tmp = tempfile.mkdtemp(prefix="avd_export_")
+    try:
+        for arch, preset, name in EXPORTS:
+            out = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            manifest = export.export_detector(out, arch=arch, preset=preset,
+                                              device=cuda)
+            export_s = time.perf_counter() - t0
+            _family_env({"AVD_DETECTOR_ARCH": arch,
+                         "AVD_DETECTOR_PRESET": preset})
+            eager = scoring.detector_timeline(frames, device=cuda)
+            e_bundle = scoring._bundle(cuda)
+            size = e_bundle[0].image_size
+            _family_env({"AVD_DETECTOR_EXPORTED": out})
+            t0 = time.perf_counter()
+            x_bundle = scoring._bundle(cuda)
+            load_s = time.perf_counter() - t0
+            served = scoring.detector_timeline(frames, device=cuda)
+            check(served["weights"].startswith("exported:")
+                  and served["weights"] == "exported:" + eager["weights"],
+                  f"{name}: weights {served['weights']}")
+            d = float(np.max(np.abs(np.subtract(served["timeline"],
+                                                eager["timeline"]))))
+            check(len(served["timeline"]) == FRAMES_MAIN and d <= 1e-3,
+                  f"{name}: exported vs eager |Δ| {d}")
+            # one call of each at the traced shape
+            n = manifest.get("batch") or manifest["window"]
+            batch = scoring._pad(scoring._prep_frames(frames[:n], size), n)
+            xb = torch.from_numpy(np.ascontiguousarray(batch)).to(cuda)
+            args = (xb, n) if "window" in manifest else (xb,)
+            calls = {}
+            for kind, b in (("exported", x_bundle), ("eager", e_bundle)):
+                ms = time_ms(lambda: b[2](*args), reps=10)
+                busy, n_dev, _ = device_profile(lambda: b[2](*args))
+                calls[kind] = {"ms": ms, "busy_ms": busy, "device_ops": n_dev}
+            rows[name] = {"export_s": export_s, "load_s": load_s,
+                          "program_bytes": manifest["program_bytes"],
+                          "max_abs": d, "shape": n, "calls": calls}
+            log(f"exported {name}: traced in {export_s:.1f} s, "
+                f"{manifest['program_bytes'] / 1e6:.1f} MB, loaded in "
+                f"{load_s:.2f} s; {FRAMES_MAIN} frames vs eager max |Δ| "
+                f"{d:.3g}; one call at {n} frames, exported / eager: "
+                + ", ".join(f"{k} {calls['exported'][k]:.3f} / "
+                            f"{calls['eager'][k]:.3f}"
+                            for k in ("ms", "busy_ms"))
+                + f", device ops {calls['exported']['device_ops']} / "
+                f"{calls['eager']['device_ops']}")
+        # a tampered copy of the last artifact
+        bad = os.path.join(tmp, "tampered")
+        shutil.copytree(out, bad)
+        with open(os.path.join(bad, export.PROGRAM_FILE), "ab") as f:
+            f.write(b"\0")
+        try:
+            export.load_bundle(bad, cuda)
+            raise PhaseError("a tampered artifact loaded")
+        except ValueError as e:
+            check("sha256" in str(e), f"tampered artifact: {e}")
+        # traced on the CPU, served on the card
+        cpu_out = os.path.join(tmp, "detector_full_cpu")
+        export.export_detector(cpu_out, arch="vit", preset="full",
+                               device="cpu")
+        _family_env({"AVD_DETECTOR_EXPORTED": cpu_out})
+        moved = scoring.detector_timeline(frames, device=cuda)
+        _family_env({})
+        eager = scoring.detector_timeline(frames, device=cuda)
+        d_cpu = float(np.max(np.abs(np.subtract(moved["timeline"],
+                                                eager["timeline"]))))
+        check(d_cpu <= 1e-3, f"CPU-traced program on the card |Δ| {d_cpu}")
+        rows["cpu_traced_on_card_max_abs"] = d_cpu
+        log(f"tampered artifact raises; detector_full traced on the CPU and "
+            f"moved to the card: max |Δ| {d_cpu:.3g} against eager")
+    finally:
+        _set_env(**{k: None for k in _FAMILY_ENV})
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
+def phase_detector_bench():
+    """Phase 29: ``tools/torch_bench_detector.py`` at 224 px, batch 64."""
+    from tools import torch_bench_detector
+    rows = {}
+    for mode in BENCH_MODES:
+        r = torch_bench_detector.bench(mode, BENCH_BATCH, DEV)
+        check(r["frames_per_s"] > 0 and r["flops_per_frame"] > 0,
+              f"bench {mode}: {r}")
+        rows[mode] = r
+        log("bench " + torch_bench_detector.line(r))
+    return rows
+
+
 def kernel_entry(name, source, replaces, rows, max_err, launches):
     ms = ROUNDS * sum(r[1] for r in rows)
     plain = ROUNDS * sum(r[2] for r in rows)
@@ -2572,6 +3001,9 @@ def main():
         family_rows = phase_families(frames)
         phase_temporal_windows(frames)
         path_rows = phase_family_paths()
+        train_rows = phase_training(fb)
+        export_rows = phase_exported(frames)
+        bench_rows = phase_detector_bench()
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -2631,6 +3063,10 @@ def main():
     with open(os.path.join("chiprun_out", "families.json"), "w") as f:
         json.dump({"card": card, "scoring": family_rows,
                    "analyze_path": path_rows}, f, indent=1)
+    with open(os.path.join("chiprun_out", "training.json"), "w") as f:
+        json.dump({"card": card, "training": train_rows,
+                   "exported": export_rows, "bench": bench_rows}, f,
+                  indent=1)
     log("families: " + "; ".join(
         f"{k} {r['frames_per_s']:.2f} frames/s (kernels "
         f"{r['kernels_ms']:.3f} ms, copy {r['h2d_ms']:.3f} ms)"

@@ -128,9 +128,8 @@ def test_detector_presets(preset):
 
 @pytest.mark.parametrize("arch", ["cnn", "temporal"])
 def test_family_presets_and_defaults(arch):
-    """Each family's presets and config defaults are avd_tpu's.  The port
-    leaves out only the training-only loss weight of the temporal family
-    (``aux_frame_loss``); the training slice adds it back."""
+    """Each family's presets and config defaults are avd_tpu's, the
+    temporal family's training-only ``aux_frame_loss`` among them."""
     import dataclasses
 
     from avd_tpu import models as jmodels
@@ -140,10 +139,37 @@ def test_family_presets_and_defaults(arch):
     for preset in j.PRESETS:
         jc, tc = j.make_config(preset), t.make_config(preset)
         names = {f.name for f in dataclasses.fields(tc)}
-        assert {f.name for f in dataclasses.fields(jc)} - names == \
-            ({"aux_frame_loss"} if arch == "temporal" else set())
+        assert {f.name for f in dataclasses.fields(jc)} == names
         assert {n: getattr(jc, n) for n in names} == \
             {n: getattr(tc, n) for n in names}
+    assert tmodels.family(arch).make_optimizer is \
+        tmodels.family("vit").make_optimizer
+
+
+def test_train_constants():
+    """The trainer's defaults and curriculum are avd_tpu's: every argument
+    the two ``train`` functions share has the same default, and the ViT
+    config's fields are avd_tpu's but for the XLA-only ``scan`` and the
+    unused ``dropout``."""
+    import dataclasses
+    import inspect
+
+    from avd_tpu.models import train as jtrain
+    from avd_tpu_torch.models import train as ttrain
+    js = inspect.signature(jtrain.train).parameters
+    ts = inspect.signature(ttrain.train).parameters
+    shared = set(js) & set(ts)
+    assert set(js) - shared == {"scan"}
+    assert set(ts) - shared == {"device"}
+    assert {k: js[k].default for k in shared} == \
+        {k: ts[k].default for k in shared}
+    assert ttrain.TRAIN_FAMILIES == jtrain.TRAIN_FAMILIES
+    assert ttrain.HELDOUT_FAMILY == jtrain.HELDOUT_FAMILY
+    assert list(ttrain.GENERATOR_FAMILIES) == list(jtrain.GENERATOR_FAMILIES)
+    jf = {f.name: f.default for f in dataclasses.fields(jdetector.ViTConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(tdetector.ViTConfig)}
+    assert set(jf) - set(tf) == {"scan", "dropout"}
+    assert {k: jf[k] for k in tf} == tf
 
 
 def test_moe_routing_constants():

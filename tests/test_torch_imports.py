@@ -3,7 +3,7 @@
 * The port imports neither jax nor anything of avd_tpu (checked in a fresh
   interpreter, since this test process has both loaded).
 * Entry points called without ``device`` raise when CUDA is absent: there
-  is no silent CPU run.
+  is no silent CPU run (training, export and the detector tools too).
 * A kernel wrapper given CPU tensors takes its plain version and leaves the
   launch counter alone.
 """
@@ -22,11 +22,13 @@ from avd_tpu_torch import pipeline
 from avd_tpu_torch.analyzers import audio as audio_an
 from avd_tpu_torch.analyzers import video as video_an
 from avd_tpu_torch.ingest import video_reader
-from avd_tpu_torch.models import cnn, detector, scoring, temporal
+from avd_tpu_torch.models import cnn, detector, export, scoring, temporal
+from avd_tpu_torch.models import train
 from avd_tpu_torch.ops import audio_features, video_features
 from avd_tpu_torch.ops.kernels import attention, blur_solve, flow_iter, warp
 from avd_tpu_torch.serve import app as serve_app
 from avd_tpu_torch.serve import batching
+from tools import torch_bench_detector, torch_eval_detector
 
 torch.set_num_threads(1)
 
@@ -60,8 +62,30 @@ for n in ("avd_tpu_torch.models", "avd_tpu_torch.models.detector",
           "avd_tpu_torch.oracle.video_ref", "avd_tpu_torch.serve",
           "avd_tpu_torch.serve.http", "avd_tpu_torch.serve.app",
           "avd_tpu_torch.serve.batching", "avd_tpu_torch.serve.master",
-          "avd_tpu_torch.client", "avd_tpu_torch.ingest.url"):
+          "avd_tpu_torch.client", "avd_tpu_torch.ingest.url",
+          "avd_tpu_torch.models.optim", "avd_tpu_torch.models.train",
+          "avd_tpu_torch.models.export", "avd_tpu_torch.ingest.codec",
+          "avd_tpu_torch.ops.fusion_device"):
     assert n in names, n
+"""
+
+# The port's tools (all but the weight converter, which reads avd_tpu's
+# orbax checkpoints with jax) import neither jax nor avd_tpu, with the
+# modules they call into.
+_TOOLS_PROBE = r"""
+import glob, importlib.util, os, sys
+import avd_tpu_torch.models.export, avd_tpu_torch.models.train
+tools = sorted(p for p in glob.glob("tools/torch_*.py")
+               if not p.endswith("torch_convert_weights.py"))
+for path in tools:
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.")
+             or k == "avd_tpu" or k.startswith("avd_tpu."))
+print(len(tools), bad)
+assert not bad, bad
 """
 
 # The master process forks the workers, so it must never initialize CUDA
@@ -98,7 +122,14 @@ def test_port_imports_no_jax_and_no_avd_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 49, r.stdout
+    assert n_modules >= 54, r.stdout
+
+
+def test_port_tools_import_no_jax_and_no_avd_tpu():
+    r = subprocess.run([sys.executable, "-c", _TOOLS_PROBE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.split()[0]) >= 5, r.stdout
 
 
 def test_serving_master_imports_no_torch():
@@ -193,6 +224,20 @@ _ENTRY_POINTS = {
     "run_prep_windows": lambda: video_features.run_prep_windows(
         np.zeros((1, 2, 320, 320), np.uint8),
         np.zeros((1, 2, 32, 32), np.uint8), None),
+    "train": lambda: train.train(steps=1, batch=2, image_size=16, width=32,
+                                 depth=1, heads=2, cache_samples=2),
+    "train.evaluate": lambda: train.evaluate(
+        {}, detector.make_config("small"), n=0),
+    "train.evaluate_sequences": lambda: train.evaluate_sequences(
+        {}, temporal.make_config("small"), n=0),
+    "export_detector": lambda: export.export_detector(
+        "/nonexistent/artifact", ckpt=None),
+    "load_bundle": lambda: export.load_bundle("/nonexistent/artifact"),
+    "scoring._bundle[exported]": lambda: _with_env(
+        scoring._bundle, AVD_DETECTOR_EXPORTED="/nonexistent/artifact"),
+    "tools.torch_eval_detector": lambda: torch_eval_detector.eval_checkpoint(
+        n=0),
+    "tools.torch_bench_detector": lambda: torch_bench_detector.bench("vit"),
 }
 
 

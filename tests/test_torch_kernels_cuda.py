@@ -399,3 +399,110 @@ def test_int_matmul_is_exact_at_every_row_count(gen, m):
     assert torch.equal(got.cpu(), x.cpu().int() @ w.cpu().int())
     with pytest.raises(ValueError, match="multiples of 8"):
         quant.int_matmul(x[:, :60].contiguous(), w[:60])
+
+
+# ---------------------------------------------------------------------------
+# training and exported programs on the card (no kernel of their own: the
+# plain path in cuBLAS and PyTorch's kernels)
+# ---------------------------------------------------------------------------
+
+_TRAIN_FAMILIES = {
+    "vit": ("vit", "small", dict(image_size=32, width=64, depth=2, heads=2),
+            (8, 32, 32, 3), (8,)),
+    "moe": ("vit", "small", dict(image_size=32, width=64, depth=2, heads=2,
+                                 n_experts=4), (8, 32, 32, 3), (8,)),
+    "cnn": ("cnn", "small", dict(image_size=32), (8, 32, 32, 3), (8,)),
+    "temporal": ("temporal", "small", dict(image_size=32, width=64, depth=1,
+                                           frame_depth=1, heads=2),
+                 (2, 4, 32, 32, 3), (2, 4)),
+}
+
+
+def _loss_and_grads(family, cfg, params, x, y):
+    from avd_tpu_torch.models import optim
+    leaves = optim.leaves_of(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = family.loss_fn(params, x, y, cfg, logit_l2=0.02)
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    return float(loss.detach()), [g.float().cpu() for g in grads]
+
+
+@pytest.mark.parametrize("name", sorted(_TRAIN_FAMILIES))
+def test_train_step_on_the_card(gen, name):
+    """The loss of each family on the card within 1e-4 of the CPU's at the
+    same weights and batch, each leaf's gradient within relative L2 3e-2
+    of the CPU's (the bound the CPU is held to against JAX), remat
+    gradients equal to the plain ones; one AdamW step leaves finite
+    parameters that moved."""
+    import dataclasses
+
+    from avd_tpu_torch import models
+    from avd_tpu_torch.models import optim
+    from avd_tpu_torch.models.detector import _map_tree
+    arch, preset, over, xs, ys = _TRAIN_FAMILIES[name]
+    family = models.family(arch)
+    cfg = family.make_config(preset, **over)
+    cpu = family.init_params(0, cfg)
+    x = torch.rand(xs, generator=gen, device="cuda")
+    y = (torch.rand(ys, generator=gen, device="cuda") > 0.5).int()
+
+    def on_card():
+        return _map_tree(lambda _, v: v.cuda().clone(), cpu)
+
+    ref_loss, ref_grads = _loss_and_grads(
+        family, cfg, _map_tree(lambda _, v: v.clone(), cpu), x.cpu(),
+        y.cpu())
+    loss, grads = _loss_and_grads(family, cfg, on_card(), x, y)
+    assert abs(loss - ref_loss) <= 1e-4, (loss, ref_loss)
+    for i, (a, b) in enumerate(zip(grads, ref_grads)):
+        assert torch.isfinite(a).all(), i
+        err = float(torch.linalg.norm(a - b))
+        assert err <= 3e-2 * float(torch.linalg.norm(b)) + 1e-12, (i, err)
+    if arch == "vit":
+        _, remat = _loss_and_grads(family, dataclasses.replace(cfg,
+                                                               remat=True),
+                                   on_card(), x, y)
+        for a, b in zip(grads, remat):
+            assert torch.equal(a, b)
+    opt = family.make_optimizer(1e-3)
+    step = family.make_train_step(cfg, opt, logit_l2=0.02)
+    params = on_card()
+    params, state, loss = step(params, opt.init(optim.leaves_of(params)),
+                               x, y)
+    assert state["count"] == 1 and torch.isfinite(loss)
+    moved = max(float((a.detach().cpu() - b).abs().max()) for a, b in zip(
+        optim.leaves_of(params), optim.leaves_of(cpu)))
+    assert 1e-4 < moved < 2e-3
+
+
+@pytest.mark.parametrize("arch,over,traced_on", [
+    ("vit", dict(image_size=32, width=64, depth=2, heads=2), "cuda"),
+    ("vit", dict(image_size=32, width=64, depth=2, heads=2), "cpu"),
+    ("temporal", dict(image_size=32, width=64, depth=1, frame_depth=1,
+                      heads=2), "cuda")])
+def test_exported_program_matches_eager_on_the_card(gen, tmp_path, arch,
+                                                    over, traced_on):
+    """A program traced on the card (or on the CPU and moved there) against
+    the eager bundle on the card: within 1e-3."""
+    from avd_tpu_torch.models import export
+    out = str(tmp_path / "artifact")
+    export.export_detector(out, arch=arch, preset="small", ckpt=None,
+                           batch=4, window=4, config_overrides=over,
+                           device=traced_on)
+    _, _, probs, source = export.load_bundle(out, "cuda")
+    assert source == "exported:random_init"
+    fam, cfg, _, params, _, _ = export._build(arch, "small", None, over)
+    params = fam.cast_for_inference(params, "cuda")
+    x = torch.rand((4, 32, 32, 3), generator=gen, device="cuda")
+    with torch.inference_mode():
+        if arch == "temporal":
+            got = probs(x, 3)
+            mask = torch.arange(4, device="cuda") < 3
+            want = torch.sigmoid(fam.forward_clip(params, x, cfg,
+                                                  mask=mask)[:, 0].float())
+        else:
+            got = probs(x)
+            want = torch.sigmoid(fam.forward(params, x, cfg)[:, 0].float())
+    assert got.device.type == "cuda"
+    assert float((got - want).abs().max()) <= 1e-3

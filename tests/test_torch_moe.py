@@ -135,19 +135,21 @@ def test_dispatch_and_combine_equal_the_loop_reference(capacity_factor):
     C = cfg.expert_capacity
     assert cfg.tokens == 5 and C == (1 if capacity_factor == 0.5 else 2)
     hb = torch.from_numpy(h).bfloat16()
-    y = tdet._moe_mlp(hb, {k: torch.from_numpy(v) for k, v in lp.items()},
-                      cfg).float().numpy()
+    y, aux = tdet._moe_mlp(hb, {k: torch.from_numpy(v)
+                                for k, v in lp.items()}, cfg)
+    y = y.float().numpy()
     ref = _loop_reference(hb.float().numpy(), lp, C)
     np.testing.assert_allclose(y, ref, atol=0.15, rtol=0.05)
     # and avd_tpu's own _moe_mlp on the same inputs
     jcfg = jdet.ViTConfig(image_size=32, patch=16, width=256, depth=2,
                           heads=4, n_experts=4,
                           capacity_factor=capacity_factor)
-    jy, _ = jdet._moe_mlp(jnp.asarray(h, jnp.bfloat16),
-                          {k: jnp.asarray(v) for k, v in lp.items()}, jcfg,
-                          lambda x, s: x)
+    jy, jaux = jdet._moe_mlp(jnp.asarray(h, jnp.bfloat16),
+                             {k: jnp.asarray(v) for k, v in lp.items()},
+                             jcfg, lambda x, s: x)
     np.testing.assert_allclose(y, np.asarray(jy, np.float32), atol=2e-2,
                                rtol=2e-2)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
 
 
 def test_capacity_drops_pass_through():
@@ -166,7 +168,7 @@ def test_capacity_drops_pass_through():
     lp["router_w"][:, 2] = 1.0  # expert 2 wins for positive features
     lp = {k: torch.from_numpy(v) for k, v in lp.items()}
     h = torch.from_numpy(rng.random((3, T, 32)).astype(np.float32) + 0.5)
-    y = tdet._moe_mlp(h.bfloat16(), lp, cfg).float()
+    y = tdet._moe_mlp(h.bfloat16(), lp, cfg)[0].float()
     kept = y[:, :C].abs().sum(dim=-1)
     assert bool((kept > 0).all())
     assert torch.equal(y[:, C:], torch.zeros_like(y[:, C:]))

@@ -7,8 +7,9 @@
 * The serving gates raise as the JAX package's do
   (tests/test_pallas_attention.py:66-84, tests/test_temporal.py,
   tests/test_quant.py); each family and mode builds its bundle on its
-  shipped checkpoint, named as ``avd_tpu`` names it; exported programs,
-  not ported, raise ``NotImplementedError`` that names ROADMAP.md.
+  shipped checkpoint, named as ``avd_tpu`` names it; an exported-program
+  directory that holds no artifact raises (``tests/test_torch_export.py``
+  serves real ones).
 * ``analyze_batch`` with ``AVD_DETECTOR=1`` runs through both packages with
   the same trained checkpoint (``detector_small``, carried across by
   ``tools/torch_convert_weights.py``): detector timeline within 1e-2
@@ -127,8 +128,12 @@ def test_gate_rejects_quant_combo(env):
 @pytest.mark.parametrize("name,value", [
     ("AVD_DETECTOR_EXPORTED", "/nowhere/exported")])
 def test_what_is_not_ported_raises_and_names_the_roadmap(env, name, value):
+    """Exported programs are ported: a directory without an artifact
+    raises at load, and takes precedence over the build-a-model
+    settings, as in ``avd_tpu``."""
     env.setenv(name, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    env.setenv("AVD_DETECTOR_ARCH", "cnn")
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
         tscoring._bundle("cpu")
 
 
@@ -362,13 +367,23 @@ def test_analyze_batch_with_the_detector(env, small_ckpt, blend):
         assert ours["timeline"] == plain["timeline"]
 
 
-def test_a_detector_failure_is_reported_not_raised(env):
+def test_a_detector_failure_is_reported_not_raised(env, tmp_path):
+    """A tampered exported artifact fails its digest check: the analyzer
+    reports it and keeps the heuristic timeline."""
+    from avd_tpu_torch.models import export
     frames, meta = _golden()
+    out_dir = str(tmp_path / "artifact")
+    export.export_detector(out_dir, preset="small", ckpt=None, batch=2,
+                           config_overrides=dict(image_size=32, width=64,
+                                                 depth=1, heads=2),
+                           device="cpu")
+    with open(os.path.join(out_dir, export.PROGRAM_FILE), "ab") as f:
+        f.write(b"\0")
     env.setenv("AVD_DETECTOR", "1")
-    env.setenv("AVD_DETECTOR_EXPORTED", "/nowhere/exported")  # not ported
+    env.setenv("AVD_DETECTOR_EXPORTED", out_dir)
     out = tvideo.analyze_batch(treader.FrameBatch(frames, *meta),
                                device="cpu")
-    assert out["detector_error"] == "NotImplementedError"
+    assert out["detector_error"] == "ValueError"
     assert "detector" not in out and out["timeline"] is out["timeline_ai"]
 
 
