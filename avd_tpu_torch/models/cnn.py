@@ -16,6 +16,15 @@ product and the stream between LayerNorms are bf16, each bias added in
 bf16 after its product; LayerNorm runs in f32 (eps 1e-6) and is cast back;
 GELU is the tanh approximation; the global pool, final LayerNorm and head
 are f32.
+
+Over a rank group, ``param_specs`` is ``avd_tpu``'s plan (block expand
+column-sharded, project row-sharded over ``model``, the rest
+replicated); ``shard`` cuts a rank's slices and ``forward(...,
+sharded=True, mesh=...)`` runs the batch over ``data`` and each block's
+MLP over ``model`` with one ``psum`` a block (of the f32 partial
+products, ``detector.block_forward_tp``), where ``avd_tpu`` lets GSPMD
+insert it.  The depthwise convolution sees every channel, so no
+halo is needed.
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ import torch.nn.functional as F
 from avd_tpu_torch import device as device_mod
 from avd_tpu_torch.models import detector
 from avd_tpu_torch.models.detector import _bf16, _ln, _map_tree
+from avd_tpu_torch.parallel import collectives as col
+from avd_tpu_torch.parallel import mesh as mesh_mod
+from avd_tpu_torch.parallel.mesh import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +87,40 @@ def stored_bf16(cfg: CNNConfig):
     store as bf16: the depthwise kernels and their biases (the int8
     forward reads every other leaf in f32)."""
     return ("dw_w", "dw_b")
+
+
+def param_specs(cfg: CNNConfig) -> Dict[str, Any]:
+    """The tensor-parallel plan (``avd_tpu/models/cnn.py:90-110``): block
+    expand column-sharded and project row-sharded over ``model``; merges,
+    depthwise kernels and norms replicate."""
+    def block():
+        return {
+            "dw_w": P(), "dw_b": P(),
+            "ln_scale": P(), "ln_bias": P(),
+            "exp_w": P(None, "model"), "exp_b": P("model"),
+            "proj_w": P("model", None), "proj_b": P(),
+            "gamma": P(),
+        }
+
+    stages = []
+    for si, depth in enumerate(cfg.depths):
+        st: Dict[str, Any] = {"blocks": [block() for _ in range(depth)]}
+        if si > 0:
+            st.update({"down_ln_scale": P(), "down_ln_bias": P(),
+                       "down_w": P(), "down_b": P()})
+        stages.append(st)
+    return {
+        "stem_w": P(), "stem_b": P(),
+        "stem_ln_scale": P(), "stem_ln_bias": P(),
+        "stages": stages,
+        "ln_f_scale": P(), "ln_f_bias": P(),
+        "head_w": P(), "head_b": P(),
+    }
+
+
+def shard(mesh, params: Dict[str, Any], cfg: CNNConfig) -> Dict[str, Any]:
+    """This rank's shards of the tree for ``forward(..., sharded=True)``."""
+    return mesh_mod.shard_params(mesh, params, param_specs(cfg))
 
 
 def param_shapes(cfg: CNNConfig) -> Dict[str, Any]:
@@ -154,9 +200,20 @@ def _dwconv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 
 def forward(params: Dict[str, Any], frames: torch.Tensor,
-            cfg: CNNConfig) -> torch.Tensor:
+            cfg: CNNConfig, sharded: bool = False, mesh=None) -> torch.Tensor:
     """[B, H, W, 3] float in [0,1] → [B, n_classes] f32 logits, on the
-    device the frames and parameters lie on."""
+    device the frames and parameters lie on.
+
+    ``sharded`` runs this rank's share over ``mesh`` (dims ``data`` and
+    ``model``): ``params`` are its shards (``shard``), ``frames`` the whole
+    batch (any device, divisible by ``data``); every rank returns every
+    logit."""
+    if sharded:
+        if mesh is None or not {"data", "model"} <= set(mesh.mesh_dim_names):
+            raise ValueError("sharded=True needs a mesh with 'data' and "
+                             "'model' dims")
+        frames = mesh_mod.batch_slice(mesh, frames, "data").to(
+            params["stem_w"].device)
     x = _patch_merge(_bf16(frames), cfg.stem_patch)
     x = x @ _bf16(params["stem_w"]) + _bf16(params["stem_b"])
     x = _bf16(_ln(x.float(), params["stem_ln_scale"],
@@ -172,12 +229,19 @@ def forward(params: Dict[str, Any], frames: torch.Tensor,
             h = _bf16(_ln(h.float(), blk["ln_scale"], blk["ln_bias"]))
             h = h @ _bf16(blk["exp_w"]) + _bf16(blk["exp_b"])
             h = F.gelu(h, approximate="tanh")
-            h = h @ _bf16(blk["proj_w"]) + _bf16(blk["proj_b"])
+            if sharded:  # the row-sharded project's Megatron psum
+                h = _bf16(col.psum(detector._partial(h, blk["proj_w"]),
+                                   mesh, "model")) + _bf16(blk["proj_b"])
+            else:
+                h = h @ _bf16(blk["proj_w"]) + _bf16(blk["proj_b"])
             x = x + _bf16(blk["gamma"]) * h
     # global average pool (f32) → final LN → head
     g = x.float().mean(dim=(1, 2))
     g = _ln(g, params["ln_f_scale"].float(), params["ln_f_bias"].float())
-    return g @ params["head_w"].float() + params["head_b"].float()
+    logits = g @ params["head_w"].float() + params["head_b"].float()
+    if sharded:
+        return col.all_gather(logits, mesh, "data", dim=0)
+    return logits
 
 
 def loss_fn(params, frames, labels, cfg: CNNConfig,

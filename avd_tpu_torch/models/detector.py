@@ -24,10 +24,25 @@ With ``cfg.n_experts`` the MLP is the Switch mixture of experts of
 routed on f32 features that recompute the embedding end to end
 (``_router_features``) with snapped logits, so every token picks the same
 expert on the card, on the CPU and in ``avd_tpu``.  Checkpoints are the
-port's ``params.npz`` (``convert.save_checkpoint``); tensor, pipeline and
-expert parallelism are a later slice (``ROADMAP.md``).  ``avd_tpu``'s
+port's ``params.npz`` (``convert.save_checkpoint``).  ``avd_tpu``'s
 ``scan`` option rolls the layers into one ``lax.scan`` to shrink XLA's
 program and computes what the loop computes: the port has no counterpart.
+
+Inference over a rank group (``parallel/``): ``param_specs`` is
+``avd_tpu``'s tensor-parallel plan (qkv and MLP-in column-sharded,
+projections row-sharded over ``model``, experts over ``model``).
+``avd_tpu`` annotates it and lets GSPMD place the collectives; here each
+rank holds its slices (``shard``: qkv columns head-major first, so a
+contiguous slice holds whole heads) and ``forward(..., sharded=True,
+mesh=...)`` writes the collectives out: the batch over ``data``, each
+block through ``block_forward_tp`` with one ``psum`` over ``model`` after
+each row-sharded product (Megatron), the experts' share of an MoE
+combine summed the same way, and with ``seq_sharded`` the residual's
+token axis sharded over ``model`` (reduce-scatter out of each region,
+all-gather into it).  ``forward_pipelined`` runs the layer stack as a
+GPipe pipeline over ``stage`` (``parallel/pipeline.py``), alone or with
+``data`` and, dense only, ``model``.  The sharded programs keep the einsum
+attention, as ``avd_tpu`` does.
 """
 
 from __future__ import annotations
@@ -44,6 +59,10 @@ from torch.utils import checkpoint as torch_checkpoint
 from avd_tpu_torch import device as device_mod
 from avd_tpu_torch.models import optim
 from avd_tpu_torch.ops.kernels import attention as attention_k
+from avd_tpu_torch.parallel import collectives as col
+from avd_tpu_torch.parallel import mesh as mesh_mod
+from avd_tpu_torch.parallel import pipeline as pl
+from avd_tpu_torch.parallel.mesh import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +148,38 @@ def make_config(preset: str = "full", **over) -> ViTConfig:
     kw = dict(PRESETS[preset])
     kw.update(over)
     return ViTConfig(**kw)
+
+
+def param_specs(cfg: ViTConfig) -> Dict[str, Any]:
+    """The tensor-parallel plan, per parameter path
+    (``avd_tpu/models/detector.py:114-142``): ``model`` shards the
+    attention heads, the MLP hidden width and, for an MoE config, the
+    expert axis; everything else replicates."""
+    layer = {
+        "ln1_scale": P(), "ln1_bias": P(),
+        "qkv_w": P(None, "model"), "qkv_b": P("model"),
+        "proj_w": P("model", None), "proj_b": P(),
+        "ln2_scale": P(), "ln2_bias": P(),
+    }
+    if cfg.n_experts:
+        layer.update({
+            "router_w": P(),
+            "moe_in_w": P("model", None, None), "moe_in_b": P("model", None),
+            "moe_out_w": P("model", None, None),
+            "moe_out_b": P("model", None),
+        })
+    else:
+        layer.update({
+            "mlp_in_w": P(None, "model"), "mlp_in_b": P("model"),
+            "mlp_out_w": P("model", None), "mlp_out_b": P(),
+        })
+    return {
+        "patch_w": P(), "patch_b": P(),
+        "pos_emb": P(), "cls_tok": P(),
+        "layers": [dict(layer) for _ in range(cfg.depth)],
+        "ln_f_scale": P(), "ln_f_bias": P(),
+        "head_w": P(), "head_b": P(),
+    }
 
 
 def param_shapes(cfg: ViTConfig) -> Dict[str, Any]:
@@ -261,6 +312,40 @@ def expert_indices(params: Dict[str, Any], frames: torch.Tensor,
                         for lp in params["layers"]])
 
 
+def _moe_route(h: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
+               router_x: Optional[torch.Tensor]):
+    """Top-1 routing of ``_moe_mlp`` → (dispatch [B, T, E, C] 0/1, combine
+    = dispatch · gate value, one-hot choice [B, T, E], gate softmax)."""
+    E, C = cfg.n_experts, cfg.expert_capacity
+    rx = h.float() if router_x is None else router_x
+    logits, eidx = _route(rx, lp["router_w"])
+    gate = torch.softmax(logits, dim=-1)
+    onehot = F.one_hot(eidx, E).float()                 # [B, T, E]
+    gateval = (gate * onehot).sum(dim=-1)               # [B, T]
+    pos = torch.cumsum(onehot, dim=1) * onehot          # 1-based queue slot
+    keep = (pos > 0) & (pos <= C)
+    slot = torch.clamp(pos - 1, 0, C - 1).long()
+    slot1h = F.one_hot((slot * onehot.long()).sum(dim=-1), C).float()
+    disp = (onehot * keep.float())[..., None] * slot1h[:, :, None, :]
+    return disp, disp * gateval[..., None, None], onehot, gate
+
+
+def _experts(h: torch.Tensor, disp: torch.Tensor, comb: torch.Tensor,
+             lp: Dict[str, Any], partial: bool = False) -> torch.Tensor:
+    """The experts of ``lp`` (leading axis E) on their dispatched tokens,
+    scattered back by ``comb`` (bf16 einsums) → [B, T, d]; ``partial``
+    leaves the combine in f32 (a rank's share of an expert-parallel sum,
+    ``block_forward_tp``)."""
+    xin = torch.einsum("btec,btd->becd", _bf16(disp), h)
+    z = torch.einsum("becd,edh->bech", xin, _bf16(lp["moe_in_w"]))
+    z = F.gelu(z + _bf16(lp["moe_in_b"])[None, :, None], approximate="tanh")
+    z = torch.einsum("bech,ehd->becd", z, _bf16(lp["moe_out_w"]))
+    z = z + _bf16(lp["moe_out_b"])[None, :, None]
+    if partial:
+        return torch.einsum("btec,becd->btd", _bf16(comb).float(), z.float())
+    return torch.einsum("btec,becd->btd", _bf16(comb), z)
+
+
 def _moe_mlp(h: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
              router_x: Optional[torch.Tensor] = None):
     """Switch top-1 MoE MLP over per-example token groups
@@ -275,25 +360,9 @@ def _moe_mlp(h: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
     einsums, and the combine tensor (dispatch · gate value) scatters them
     back.  ``router_x`` is the f32 routing input (``_router_features``);
     without it the block routes on ``h`` itself."""
-    E, C = cfg.n_experts, cfg.expert_capacity
-    rx = h.float() if router_x is None else router_x
-    logits, eidx = _route(rx, lp["router_w"])
-    gate = torch.softmax(logits, dim=-1)
-    onehot = F.one_hot(eidx, E).float()                 # [B, T, E]
-    gateval = (gate * onehot).sum(dim=-1)               # [B, T]
-    pos = torch.cumsum(onehot, dim=1) * onehot          # 1-based queue slot
-    keep = (pos > 0) & (pos <= C)
-    slot = torch.clamp(pos - 1, 0, C - 1).long()
-    slot1h = F.one_hot((slot * onehot.long()).sum(dim=-1), C).float()
-    disp = (onehot * keep.float())[..., None] * slot1h[:, :, None, :]
-    comb = disp * gateval[..., None, None]              # [B, T, E, C]
-
-    xin = torch.einsum("btec,btd->becd", _bf16(disp), h)
-    z = torch.einsum("becd,edh->bech", xin, _bf16(lp["moe_in_w"]))
-    z = F.gelu(z + _bf16(lp["moe_in_b"])[None, :, None], approximate="tanh")
-    z = torch.einsum("bech,ehd->becd", z, _bf16(lp["moe_out_w"]))
-    z = z + _bf16(lp["moe_out_b"])[None, :, None]
-    y = torch.einsum("btec,becd->btd", _bf16(comb), z)
+    E = cfg.n_experts
+    disp, comb, onehot, gate = _moe_route(h, lp, cfg, router_x)
+    y = _experts(h, disp, comb, lp)
     frac = onehot.mean(dim=1)                           # [B, E]
     mean_gate = gate.mean(dim=1)                        # [B, E]
     return y, E * (frac * mean_gate).sum(dim=-1).mean()
@@ -331,6 +400,107 @@ def block_forward_aux(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
     return x + h, 0.0
 
 
+def _tp_shuffle_qkv(layers, cfg: ViTConfig):
+    """Each layer's qkv_w/qkv_b columns permuted from ``(3, heads,
+    head_dim)`` to ``(heads, 3, head_dim)``, so a contiguous column slice
+    over ``model`` holds whole heads: the layout ``block_forward_tp``
+    reads (``avd_tpu/models/detector.py:456-465``)."""
+    idx = np.arange(3 * cfg.width).reshape(3, cfg.heads, cfg.head_dim)
+    idx = torch.from_numpy(idx.transpose(1, 0, 2).reshape(-1))
+    return [dict(lp, qkv_w=lp["qkv_w"][:, idx.to(lp["qkv_w"].device)],
+                 qkv_b=lp["qkv_b"][idx.to(lp["qkv_b"].device)])
+            for lp in layers]
+
+
+def shard(mesh, params: Dict[str, Any], cfg: ViTConfig) -> Dict[str, Any]:
+    """This rank's shards of the tree for ``forward(..., sharded=True)``:
+    the qkv columns head-major (``_tp_shuffle_qkv``), then each leaf cut
+    by ``param_specs``."""
+    tree = dict(params, layers=_tp_shuffle_qkv(params["layers"], cfg))
+    return mesh_mod.shard_params(mesh, tree, param_specs(cfg))
+
+
+def _pad_tokens(x: torch.Tensor, t: int) -> torch.Tensor:
+    """[B, T, d] → [B, t, d], zero rows appended."""
+    if x.shape[1] == t:
+        return x
+    return torch.cat([x, x.new_zeros(x.shape[0], t - x.shape[1],
+                                     x.shape[2])], dim=1)
+
+
+def block_forward_tp(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
+                     mesh, axis: str = "model",
+                     router_x: Optional[torch.Tensor] = None,
+                     seq_tokens: int = 0) -> torch.Tensor:
+    """One transformer block with the Megatron collectives written out
+    (``avd_tpu/models/detector.py:406-453``).
+
+    ``lp`` holds this rank's shards: qkv and MLP-in column-sliced over
+    ``axis`` (the local heads, qkv head-major as ``_tp_shuffle_qkv``
+    lays it out, and the local hidden width), the projections row-sliced;
+    for an MoE layer the local experts (``_moe_mlp``'s routing is computed
+    in full from the replicated f32 ``router_x`` on every rank, each rank
+    runs its experts' share of the combine).  Each region exits through
+    one ``psum`` over ``axis`` of the ranks' f32 partial products, rounded
+    to bf16 once after the sum and its bias added before the residual, as
+    ``block_forward_aux`` rounds and adds on one device.  (``avd_tpu``
+    sums bf16 partials and adds the bias after the residual, which costs
+    most of the 2e-2 logit budget on the trained ``full`` ViT.)
+
+    ``seq_tokens`` > 0 is Megatron sequence parallelism: ``x`` is this
+    rank's block of the residual's token axis (the stream of
+    ``seq_tokens`` tokens, zero-padded to a multiple of the axis), a
+    region's input is all-gathered over tokens after its LayerNorm and its
+    exit reduce-scattered over tokens."""
+    m = col.axis_size(mesh, axis)
+    if seq_tokens:
+        t_pad = x.shape[1] * m
+
+        def enter(h):
+            return col.all_gather(h, mesh, axis, dim=1)[:, :seq_tokens]
+
+        def leave(y):
+            return _bf16(col.psum_scatter(_pad_tokens(y, t_pad), mesh, axis,
+                                          dim=1))
+    else:
+        def enter(h):
+            return h
+
+        def leave(y):
+            return _bf16(col.psum(y, mesh, axis))
+
+    local_width = lp["qkv_w"].shape[1] // 3
+    local_heads = local_width // cfg.head_dim
+    h = enter(_bf16(_ln(x.float(), lp["ln1_scale"], lp["ln1_bias"])))
+    qkv = h @ _bf16(lp["qkv_w"]) + _bf16(lp["qkv_b"])
+    b, t, _ = qkv.shape
+    qkv = qkv.reshape(b, t, local_heads, 3, cfg.head_dim)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    att = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    att = torch.softmax(att / np.sqrt(cfg.head_dim), dim=-1)
+    o = torch.einsum("bhts,bshd->bthd", _bf16(att).float(), v.float())
+    o = _bf16(o.reshape(b, t, local_width))
+    x = x + (leave(_partial(o, lp["proj_w"])) + _bf16(lp["proj_b"]))
+
+    h = enter(_bf16(_ln(x.float(), lp["ln2_scale"], lp["ln2_bias"])))
+    if "router_w" in lp:
+        disp, comb, _, _ = _moe_route(h, lp, cfg, router_x)
+        n_local = lp["moe_in_w"].shape[0]
+        e0 = col.axis_index(mesh, axis) * n_local
+        y = _experts(h, disp[:, :, e0:e0 + n_local],
+                     comb[:, :, e0:e0 + n_local], lp, partial=True)
+        return x + leave(y)
+    h = h @ _bf16(lp["mlp_in_w"]) + _bf16(lp["mlp_in_b"])
+    h = F.gelu(h, approximate="tanh")
+    return x + (leave(_partial(h, lp["mlp_out_w"])) + _bf16(lp["mlp_out_b"]))
+
+
+def _partial(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A rank's share of a row-sharded product, unrounded: the bf16
+    operands multiplied in f32 (their products are exact)."""
+    return a.float() @ _bf16(w).float()
+
+
 def head(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """Final LN on the cls token → f32 logits."""
     x = _ln(x.float(), params["ln_f_scale"].float(),
@@ -339,13 +509,26 @@ def head(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Dict[str, Any], frames: torch.Tensor,
-            cfg: ViTConfig, with_aux: bool = False):
+            cfg: ViTConfig, with_aux: bool = False, sharded: bool = False,
+            seq_sharded: bool = False, mesh=None):
     """ViT forward: [B, H, W, 3] float in [0,1] → [B, n_classes] f32
     logits, on the device the frames and parameters lie on;
     ``with_aux`` returns ``(logits, MoE load-balancing loss)`` (0.0 for a
     dense config).  With
     ``cfg.remat`` and autograd on, each block is recomputed in the
-    backward pass instead of keeping its activations."""
+    backward pass instead of keeping its activations.
+
+    ``sharded`` runs this rank's share over ``mesh`` (dims ``data`` and
+    ``model``): ``params`` are its shards (``shard``), ``frames`` the
+    whole batch (any device; the batch must divide by ``data``); every
+    rank returns every logit.  ``seq_sharded`` adds sequence parallelism
+    (``block_forward_tp``)."""
+    if sharded:
+        if with_aux:
+            raise ValueError("the sharded forward serves inference; the MoE "
+                             "loss under a mesh belongs to the training "
+                             "slice (ROADMAP.md)")
+        return _forward_sharded(params, frames, cfg, mesh, seq_sharded)
     x = embed(params, frames, cfg)
     router_x = (_router_features(params, frames, cfg) if cfg.n_experts
                 else None)
@@ -361,6 +544,121 @@ def forward(params: Dict[str, Any], frames: torch.Tensor,
         aux_total = aux_total + aux
     logits = head(params, x)
     return (logits, aux_total) if with_aux else logits
+
+
+def _forward_sharded(params, frames, cfg: ViTConfig, mesh,
+                     seq_sharded: bool) -> torch.Tensor:
+    if mesh is None or not {"data", "model"} <= set(mesh.mesh_dim_names):
+        raise ValueError("sharded=True needs a mesh with 'data' and "
+                         "'model' dims")
+    dev = params["patch_w"].device
+    frames = mesh_mod.batch_slice(mesh, frames, "data").to(dev)
+    x = embed(params, frames, cfg)
+    router_x = (_router_features(params, frames, cfg) if cfg.n_experts
+                else None)
+    seq_tokens = 0
+    if seq_sharded:
+        m = col.axis_size(mesh, "model")
+        seq_tokens = cfg.tokens
+        x = _pad_tokens(x, -(-seq_tokens // m) * m)
+        x = x.chunk(m, dim=1)[col.axis_index(mesh, "model")].contiguous()
+    for lp in params["layers"]:
+        x = block_forward_tp(x, lp, cfg, mesh, "model", router_x, seq_tokens)
+    if seq_sharded:
+        x = col.all_gather(x, mesh, "model", dim=1)[:, :seq_tokens]
+    return col.all_gather(head(params, x), mesh, "data", dim=0)
+
+
+def forward_pipelined(params: Dict[str, Any], frames: torch.Tensor,
+                      cfg: ViTConfig, mesh, n_micro: int = 0,
+                      tp: bool = False) -> torch.Tensor:
+    """Pipeline-parallel ViT forward over the mesh's ``stage`` dim (with
+    ``data`` when the mesh has it) (``avd_tpu/models/detector.py:518-617``):
+    each stage runs its ``depth/S`` layers of the stacked tree, microbatches
+    stream through the GPipe ring (``parallel/pipeline.py``); embed and
+    head run outside the pipeline.  ``params`` is the whole tree, on the
+    rank's device, and ``frames`` the whole batch (any device); every rank
+    returns every logit.
+
+    ``n_micro`` defaults to the stage count; the batch must divide by it
+    and each microbatch by ``data``.  An MoE stack routes on the f32
+    pre-gating features, which ride the ring beside the activations.
+    ``tp=True`` also slices every stage's blocks over ``model``
+    (``block_forward_tp``, dense only; heads and MLP width must divide by
+    the axis): the dp × pp × tp configuration."""
+    names = mesh.mesh_dim_names
+    n_stages = col.axis_size(mesh, "stage")
+    if cfg.depth % n_stages:
+        raise ValueError(f"depth {cfg.depth} not divisible by "
+                         f"{n_stages} stages")
+    n_micro = n_micro or n_stages
+    B = frames.shape[0]
+    if B % n_micro:
+        raise ValueError(f"batch {B} not divisible by {n_micro} microbatches")
+    if tp:
+        if "model" not in names:
+            raise ValueError("tp=True needs a 'model' mesh axis")
+        if cfg.n_experts:
+            raise ValueError("tp=True composes dense blocks only "
+                             "(block_forward_tp); MoE uses the sharded "
+                             "forward")
+        m = col.axis_size(mesh, "model")
+        if cfg.heads % m or cfg.mlp_width % m:
+            raise ValueError(f"heads {cfg.heads} / mlp {cfg.mlp_width} "
+                             f"not divisible by model axis {m}")
+    mb = B // n_micro
+    n_data = col.axis_size(mesh, "data") if "data" in names else 1
+    if mb % n_data:
+        raise ValueError(f"microbatch {mb} not divisible by data axis "
+                         f"{n_data}")
+    dev = params["patch_w"].device
+    f = frames.reshape((n_micro, mb) + tuple(frames.shape[1:]))
+    if n_data > 1:
+        f = mesh_mod.batch_slice(mesh, f.transpose(0, 1), "data") \
+            .transpose(0, 1)
+    f = f.reshape((-1,) + tuple(frames.shape[1:])).to(dev)
+    rows = f.shape[0] // n_micro
+
+    def micro(t):
+        return t.reshape(n_micro, rows, cfg.tokens, cfg.width)
+
+    xs = micro(embed(params, f, cfg))
+    layers = params["layers"]
+    if cfg.n_experts:
+        # the pre-gating features ride the ring as a second leaf
+        xs = (xs, micro(_router_features(params, f, cfg)))
+
+        def stage_fn(sp, xm):
+            h, r = xm
+            return (pl.scan_layers(
+                lambda hc, lp: block_forward_aux(hc, lp, cfg, r)[0], sp, h),
+                r)
+        specs = {k: P("stage") for k in layers[0]}
+    elif tp:
+        layers = _tp_shuffle_qkv(layers, cfg)
+        specs = {k: P("stage", *s)
+                 for k, s in param_specs(cfg)["layers"][0].items()}
+
+        def stage_fn(sp, xm):
+            return pl.scan_layers(
+                lambda h, lp: block_forward_tp(h, lp, cfg, mesh, "model"),
+                sp, xm)
+    else:
+        specs = {k: P("stage") for k in layers[0]}
+
+        def stage_fn(sp, xm):
+            return pl.scan_layers(
+                lambda h, lp: block_forward_aux(h, lp, cfg)[0], sp, xm)
+
+    stage_params = mesh_mod.shard_params(mesh, pl.stack_layers(layers), specs)
+    ys = pl.gpipe(stage_fn, stage_params, xs, n_stages, mesh)
+    if cfg.n_experts:
+        ys = ys[0]
+    logits = head(params, ys.reshape(-1, cfg.tokens, cfg.width))
+    logits = logits.reshape(n_micro, rows, -1)
+    if n_data > 1:
+        logits = col.all_gather(logits, mesh, "data", dim=1)
+    return logits.reshape(B, -1)
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,16 @@ device:
   fed in chunks of its traced batch, the last one padded.  A missing or
   tampered artifact raises (the analyzers report ``detector_error``).
 
-Sharded inference belongs to the parallelism slice (``ROADMAP.md``).
+In a rank group (``parallel/distributed.initialize``, more than one
+rank) the per-frame families score sharded, as ``avd_tpu`` does over
+its devices (``avd_tpu/models/scoring.py:211-243``): a (data, model) mesh
+over every rank, each rank its parameter shards, its slice of the bucket
+(a power of two times the data axis), and every rank gets every
+probability.  ``AVD_ATTN_FUSED=1`` is turned off there with
+``avd_tpu``'s warning (the sharded block keeps the einsum attention);
+``AVD_DETECTOR_QUANT=1`` serves on each rank alone, with its warning;
+the temporal family serves on each rank alone, as in ``avd_tpu``.  Every
+rank must score the same frames.
 
 Every function that touches the model takes ``device=`` and defaults to
 CUDA through ``device.resolve``: without a GPU it raises unless the caller
@@ -189,6 +198,8 @@ def _bundle_on(device: str):
     if temp != 1.0:
         source = f"{source}+T{temp:.2f}"
 
+    from avd_tpu_torch.parallel import distributed
+    world = distributed.world_size()
     if quant:
         # silently serving bf16 while the operator believes int8 is on
         # would mislead capacity planning: fail (the analyzers report it
@@ -196,12 +207,19 @@ def _bundle_on(device: str):
         if arch not in ("vit", "cnn"):
             raise ValueError(
                 f"AVD_DETECTOR_QUANT=1 supports vit/cnn, not {arch!r}")
+        if world > 1:
+            warnings.warn(
+                "AVD_DETECTOR_QUANT=1 serves SINGLE-RANK: the int8 tree has "
+                "no TP/DP specs, so each of the {} ranks scores alone. "
+                "Unset AVD_DETECTOR_QUANT to shard bf16 inference over the "
+                "ranks.".format(world), stacklevel=2)
         params = quant_mod.to_device(quant_mod.quantize_params(params), dev)
         source = f"{source}+int8"
 
         @torch.inference_mode()
         def probs(frames_f32: torch.Tensor) -> torch.Tensor:
-            return _sigmoid(quant_mod.forward(params, frames_f32, cfg), temp)
+            return _sigmoid(quant_mod.forward(params, frames_f32.to(dev),
+                                              cfg), temp)
     elif arch == "temporal":
         params = family.cast_for_inference(params, dev)
 
@@ -217,13 +235,40 @@ def _bundle_on(device: str):
         # of attention, so scores do not depend on the clip's length
         probs.clip_window = max(1, int(os.getenv("AVD_TEMPORAL_WINDOW",
                                                  "32")))
+    elif world > 1:
+        if fused:
+            warnings.warn("AVD_ATTN_FUSED=1 is single-device-only; the "
+                          "sharded detector program keeps the einsum "
+                          "attention", stacklevel=2)
+            cfg = dataclasses.replace(cfg, fused_attn=False)
+        mesh = distributed.global_mesh(("data", "model"))
+        params, probs = sharded_probs(family, cfg, params, temp, mesh, dev)
     else:
         params = family.cast_for_inference(params, dev)
 
         @torch.inference_mode()
         def probs(frames_f32: torch.Tensor) -> torch.Tensor:
-            return _sigmoid(family.forward(params, frames_f32, cfg), temp)
+            return _sigmoid(family.forward(params, frames_f32.to(dev), cfg),
+                            temp)
     return cfg, params, probs, source
+
+
+def sharded_probs(family, cfg, params, temp: float, mesh, dev):
+    """(this rank's shards on ``dev``, probs function) of a per-frame
+    family over a (data, model) mesh: the function takes the whole bucket
+    (a host tensor; each rank copies its slice to the card) and returns
+    every probability on every rank.  Its ``min_batch`` is the data axis:
+    ``_score_prepped`` pads buckets to a multiple of it."""
+    from avd_tpu_torch.parallel import collectives
+    shards = family.cast_for_inference(family.shard(mesh, params, cfg), dev)
+
+    @torch.inference_mode()
+    def probs(frames_f32: torch.Tensor) -> torch.Tensor:
+        return _sigmoid(family.forward(shards, frames_f32, cfg, sharded=True,
+                                       mesh=mesh), temp)
+
+    probs.min_batch = collectives.axis_size(mesh, "data")
+    return shards, probs
 
 
 _bundle.cache_clear = _bundle_on.cache_clear
@@ -282,8 +327,9 @@ def _pad(batch: np.ndarray, size: int) -> np.ndarray:
 
 def _score_prepped(batch: np.ndarray, device=None) -> dict:
     """Score a prepped [N, size, size, 3] RGB f32 batch.  Per-frame
-    families: padded to a power-of-two bucket with the last frame
-    repeated, one forward pass, one fetch of the first N probabilities; an
+    families: padded to a power-of-two bucket (times the data axis when
+    sharded) with the last frame repeated, one forward pass, one fetch of
+    the first N probabilities; an
     exported program takes chunks of its traced batch, the last padded the
     same way.  Clip families: one forward per fixed window, the tail
     window padded the same way and its padding masked out of attention."""
@@ -303,11 +349,11 @@ def _score_prepped(batch: np.ndarray, device=None) -> dict:
         p = torch.cat(outs).cpu().numpy()
         return {"timeline": [float(x) for x in p], "weights": source}
     n = batch.shape[0]
-    bucket = 1
+    bucket = getattr(probs_fn, "min_batch", 1)
     while bucket < n:
         bucket *= 2
     batch = _pad(batch, bucket)
-    p = probs_fn(torch.from_numpy(np.ascontiguousarray(batch)).to(dev))
+    p = probs_fn(torch.from_numpy(np.ascontiguousarray(batch)))
     return {"timeline": [float(x) for x in p[:n].cpu().numpy()],
             "weights": source}
 

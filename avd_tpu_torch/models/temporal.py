@@ -20,8 +20,10 @@ keeps padded frames out of every softmax): plain torch ops, since
 ``avd_tpu`` computes them in XLA with no Pallas kernel behind them.
 Training supervises every frame, and the frame embedding directly through
 the per-frame head (``aux_frame_loss``); ``synthetic_sequences`` splices
-the per-frame curriculum into clips.  The time-sharded forward (ring /
-Ulysses attention) belongs to the parallelism slice (``ROADMAP.md``).
+the per-frame curriculum into clips.  ``forward_time_sharded`` runs the
+time axis over a rank group's ``time`` dim, attention as ring attention
+or Ulysses (``parallel/attention.py``); every leaf replicates
+(``param_specs``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ from avd_tpu_torch import device as device_mod
 from avd_tpu_torch.models import detector
 from avd_tpu_torch.models.detector import _bf16, _ln, _map_tree, patchify
 from avd_tpu_torch.parallel import attention as pattn
+from avd_tpu_torch.parallel import collectives as col
+from avd_tpu_torch.parallel import mesh as mesh_mod
+from avd_tpu_torch.parallel.mesh import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +106,22 @@ def _block_shapes(d: int, m: int) -> Dict[str, Any]:
             "ln2_scale": (d,), "ln2_bias": (d,),
             "mlp_in_w": (d, m), "mlp_in_b": (m,),
             "mlp_out_w": (m, d), "mlp_out_b": (d,)}
+
+
+def param_specs(cfg: TemporalConfig) -> Dict[str, Any]:
+    """Every leaf replicates: the family's parallel axis is time
+    (``forward_time_sharded``), not its narrow widths
+    (``avd_tpu/models/temporal.py:116-120``)."""
+    layer = {k: P() for k in _block_shapes(cfg.width, cfg.mlp_width)}
+    return {
+        "frame_w": P(), "frame_b": P(),
+        "frame_layers": [dict(layer) for _ in range(cfg.frame_depth)],
+        "in_w": P(), "in_b": P(),
+        "layers": [dict(layer) for _ in range(cfg.depth)],
+        "ln_f_scale": P(), "ln_f_bias": P(),
+        "head_w": P(), "head_b": P(),
+        "aux_w": P(), "aux_b": P(),
+    }
 
 
 def param_shapes(cfg: TemporalConfig) -> Dict[str, Any]:
@@ -249,6 +270,46 @@ def forward_clip(params: Dict[str, Any], frames: torch.Tensor,
     n_classes] logits (the batch axis is time here); ``mask`` [N] bool."""
     return forward(params, frames[None], cfg,
                    mask=None if mask is None else mask[None])[0]
+
+
+def forward_time_sharded(params: Dict[str, Any], frames: torch.Tensor,
+                         cfg: TemporalConfig, mesh,
+                         impl: str = "ring") -> torch.Tensor:
+    """Sequence-parallel forward (``avd_tpu/models/temporal.py:345-391``):
+    the time axis shards over the mesh's ``time`` dim and attention runs as
+    ring attention (K/V ring, f32 online softmax) or Ulysses (all_to_all
+    head redistribution); exact, so equal to ``forward`` up to fp
+    rounding.  ``frames`` is the whole [B, T, H, W, 3] batch (any device)
+    and every rank returns all [B, T, n_classes] logits; a shard's time
+    encoding starts at its first frame's index.  T must divide by the
+    axis (and the heads too for Ulysses)."""
+    n_shards = col.axis_size(mesh, "time")
+    T = frames.shape[1]
+    if T % n_shards:
+        raise ValueError(f"T {T} not divisible by time axis {n_shards}")
+    if impl == "ulysses" and cfg.heads % n_shards:
+        raise ValueError(f"heads {cfg.heads} not divisible by "
+                         f"{n_shards} (ulysses)")
+    if impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown impl {impl!r}")
+    t_local = T // n_shards
+
+    if impl == "ring":
+        def attn(q, k, v):
+            return pattn.ring_attention(q, k, v, mesh, "time", n_shards)
+    else:
+        def attn(q, k, v):
+            return pattn.ulysses_attention(q, k, v, mesh, "time")
+
+    local = mesh_mod.batch_slice(mesh, frames.transpose(0, 1), "time")
+    local = local.transpose(0, 1).to(params["in_w"].device)
+    x = _encode_frames(params, local, cfg)
+    t0 = col.axis_index(mesh, "time") * t_local
+    x = x + _bf16(_time_encoding(t0, t_local, cfg.width,
+                                 device=x.device))[None]
+    for lp in params["layers"]:
+        x = _block(x, lp, cfg, attn)
+    return col.all_gather(_head(params, x), mesh, "time", dim=1)
 
 
 def loss_fn(params, frames, labels, cfg: TemporalConfig,

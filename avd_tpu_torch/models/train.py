@@ -469,7 +469,10 @@ def _dir_batches(root: str, rng, batch: int, size: int):
 def _not_here(flag: str):
     return NotImplementedError(
         f"{flag} is multi-device training, which the port does not have "
-        "yet (ROADMAP.md, the parallelism queue)")
+        "yet: avd_tpu_torch/parallel/ serves inference over a rank group "
+        "(sharded, expert-, pipeline- and context-parallel forwards); "
+        "training over one (dp x tp, GPipe's backward, ZeRO-1, FSDP) is "
+        "the next slice (ROADMAP.md, the parallelism queue)")
 
 
 def _config(arch, image_size, width, depth, heads, experts, remat):

@@ -32,8 +32,11 @@ concurrent requests into one ``run_prep_windows`` call.
 
 ``AVD_CHANGE_GATE=1`` (``compute_features`` only) hashes on the host and
 runs the flow only for the pairs whose 320² planes changed
-(``_compute_features_gated``).  Aggregation runs on the host in float64
-(``oracle/video_ref.summarize``).
+(``_compute_features_gated``).  In a rank group, ``compute_features``
+with host prep shards the clip's pairs over the ranks' time axis with a
+one-frame halo (``cp_features_prepped``, ``parallel/halo.py``); the
+streaming path keeps one device, as in ``avd_tpu``.  Aggregation runs on
+the host in float64 (``oracle/video_ref.summarize``).
 """
 
 from __future__ import annotations
@@ -442,16 +445,76 @@ def compute_features_streaming(chunk_iter, device=None,
     return _assemble(feats, *sinks)
 
 
+# ---------------------------------------------------------------------------
+# context parallelism over a rank group (parallel/halo.py)
+# ---------------------------------------------------------------------------
+
+def _cp_len(n: int, d: int) -> int:
+    """Frames a clip of ``n`` is padded to over a time axis of ``d`` ranks:
+    a power-of-two multiple of ``d``, so clip lengths map to a handful of
+    shapes (``avd_tpu/ops/video_features.py:671-676``)."""
+    per = -(-n // d)
+    bucket = 1
+    while bucket < per:
+        bucket *= 2
+    return bucket * d
+
+
+def cp_pair_features(s320: np.ndarray, s32: np.ndarray, mesh, device=None,
+                     cfg=None):
+    """(ham, fmean, fvar) of the ``n-1`` consecutive pairs of the host-prep
+    planes ([n, 320, 320] and [n, 32, 32] uint8), time-sharded over
+    ``mesh``'s ``time`` axis with a one-frame halo
+    (``halo.cp_video_pair_features``).  The clip is padded with its last
+    frame to ``_cp_len``; the padded rows are self-pairs and are cut.
+    Every rank gets the same arrays, fetched in one copy."""
+    from avd_tpu_torch.parallel import collectives, halo
+    dev = device_mod.resolve(device)
+    n = s320.shape[0]
+    n_pad = _cp_len(n, collectives.axis_size(mesh, "time"))
+    if n_pad != n:
+        s320 = np.concatenate([s320, np.repeat(s320[-1:], n_pad - n, 0)])
+        s32 = np.concatenate([s32, np.repeat(s32[-1:], n_pad - n, 0)])
+    fn = halo.cp_video_pair_features(mesh, device=dev, cfg=cfg)
+    ham, fmean, fvar, _ = fn(torch.from_numpy(np.ascontiguousarray(s320)),
+                             torch.from_numpy(np.ascontiguousarray(s32)))
+    k = n - 1  # the real consecutive pairs
+    out = torch.stack([ham[:k], fmean[:k], fvar[:k]]).cpu().numpy()
+    mark_device_warm()
+    return out[0], out[1], out[2]
+
+
+def cp_features_prepped(s320: np.ndarray, s32: np.ndarray, tex, mesh,
+                        device=None, cfg=None) -> Dict:
+    """``compute_features``' result from host-prep planes and textures,
+    the pairs time-sharded over ``mesh`` (``cp_pair_features``)."""
+    feats = {"dup": 0, "total": s320.shape[0], "flow_means": [],
+             "flow_vars": [], "textures": [], "timeline_ai": []}
+    ham, fmean, fvar = cp_pair_features(s320, s32, mesh, device, cfg)
+    return _assemble(feats, list(tex), ham.tolist(), fmean.tolist(),
+                     fvar.tolist())
+
+
 def compute_features(frames: np.ndarray, device=None) -> Dict:
     """Per-frame feature lists for a [N, H, W, 3] uint8 BGR batch.
 
     Host prep runs the streaming path over chunk-sized slices (identical
     results), or the change gate under ``AVD_CHANGE_GATE=1``; device prep
     pads every window, the tail too, to the full chunk, as the JAX
-    package's ``compute_features`` does."""
+    package's ``compute_features`` does.  In a rank group
+    (``parallel/distributed.py``) host prep with the gate off takes the
+    context-parallel path instead, for clips of at least two frames a
+    rank (``AVD_CP=0`` turns it off): every rank is called with the same
+    frames and returns the same features."""
     n = frames.shape[0]
     cfg = config_mod.get_config()
     if cfg.prep_mode == "host" and not cfg.change_gate:
+        from avd_tpu_torch.parallel import collectives, distributed
+        mesh = distributed.cp_mesh()
+        if mesh is not None and n >= 2 * collectives.axis_size(mesh, "time"):
+            s320, s32, tex = host_prep_mod.host_prep(frames,
+                                                     native=cfg.native)
+            return cp_features_prepped(s320, s32, tex, mesh, device, cfg)
         return compute_features_streaming(
             (frames[i:i + _DEFAULT_CHUNK]
              for i in range(0, n, _DEFAULT_CHUNK)), device=device)

@@ -123,8 +123,8 @@ Phases, in order; any failure exits non-zero before the result line:
 22. cross-request batching: one worker, ``GUNICORN_THREADS=4``,
     ``AVD_BATCH_WINDOW_MS=100``: 4 concurrent uploads of the 1080p mp4
     (``batch_fused_jobs`` >= 2, each envelope equal to the solo one), 4
-    sequential; then, with batching on and off, two rounds of 16 uploads
-    from 1 client and 32 from 4, every envelope held to the solo one:
+    sequential; then, with batching on and off, two rounds of 8 uploads
+    from 1 client and 16 from 4, every envelope held to the solo one:
     requests/s, p50 and max latency over the rounds
     (``chiprun_out/serving.json``);
 23. the trace route: the in-process app with ``DEBUG=1``,
@@ -174,6 +174,24 @@ Phases, in order; any failure exits non-zero before the result line:
 29. the detector bench (``tools/torch_bench_detector.py``): frames/s,
     FLOPs per frame and MFU of each mode at 224 px, batch 64
     (``chiprun_out/training.json`` holds 27-29).
+
+30. the NCCL probe: two NCCL ranks on the one card (NCCL is expected to
+    refuse: "Duplicate GPU detected"; what it said is printed, either way
+    passes);
+31. inference parallelism on a group of one rank over NCCL, in this
+    process (``parallel/dryrun.py``): the video path's pair features
+    under context parallelism on the 145 frames' planes (``cp``: warp and
+    blur+solve launched; ``cp_iter`` with the fused round: ``flow_iter``
+    launched), the ``full`` ViT under (data, model) (``vit_dm``), GPipe
+    (``gpipe``), ``moe_small`` expert-parallel (routes equal), the 3-D
+    (data, stage, model) forward and ``temporal_small`` ring and Ulysses
+    at T = 32, on the shipped weights, each against its single-device
+    result (features rtol 1e-5, logits 2e-2): ms and NCCL calls;
+32. the same programs and scoring's sharded branch on 4 ranks sharing the
+    card over gloo, collectives staged through host memory
+    (``dryrun.launch(4, "cuda")``): every rank against the single-device
+    result, ms, collectives by kind and transport, kernel launches per
+    rank (``chiprun_out/parallel.json``).
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It needs the repository beside it
@@ -2063,15 +2081,15 @@ def phase_served(wav_path, card_name):
 
 
 SERVE_ROUNDS = 2             # timed rounds a batching mode
-SERVE_UPLOADS = {1: 16, 4: 32}  # uploads a round at each client count
+SERVE_UPLOADS = {1: 8, 4: 16}  # uploads a round at each client count
 
 
 def phase_batching(ref_mp4):
     """Cross-request batching on the card: one worker with 4 threads and
     AVD_BATCH_WINDOW_MS=100; 4 concurrent uploads of the 1080p mp4 fuse
     (batch_fused_jobs >= 2) and each equals the solo envelope.  Then, with
-    batching on and off, SERVE_ROUNDS rounds of 16 uploads from 1 client
-    and 32 from 4: requests/s, p50 and max latency over every upload of
+    batching on and off, SERVE_ROUNDS rounds of 8 uploads from 1 client
+    and 16 from 4: requests/s, p50 and max latency over every upload of
     the rounds, every envelope held to the solo one."""
     from avd_tpu_torch.client import Client
     rows = {}
@@ -2919,6 +2937,144 @@ def phase_detector_bench():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# inference parallelism over a rank group
+# ---------------------------------------------------------------------------
+
+PAR_PROGRAMS = ("cp", "cp_iter", "vit_dm", "gpipe", "moe_ep", "dp_pp_tp",
+                "temporal_ring", "temporal_ulysses")
+PAR_RANKS = 4
+PROBE_TIMEOUT_S = 120
+RANKS_TIMEOUT_S = 600
+
+
+def _par_programs(names):
+    """dryrun's programs by name; ``cp_iter`` is ``cp`` with the fused
+    Farnebäck round (``AVD_PALLAS_ITER=1``'s ``flow_iter`` kernel)."""
+    return [{"name": "cp_iter", "kind": "cp", "fused_iter": True}
+            if n == "cp_iter" else n for n in names]
+
+
+def phase_nccl_probe():
+    """Phase 30: two NCCL ranks on the one card (NCCL is expected to
+    refuse them: "Duplicate GPU detected").  What NCCL said is printed;
+    neither outcome fails the phase.  (Which collectives gloo takes on
+    CUDA tensors unstaged: ``python -m avd_tpu_torch.parallel.dryrun
+    --probe-gloo``.)"""
+    from avd_tpu_torch.parallel import dryrun
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        ranks = dryrun.launch(2, DEV, [{"name": "probe",
+                                        "kind": "probe_all_reduce"}],
+                              backend="nccl", timeout_s=PROBE_TIMEOUT_S)
+        out["nccl_two_ranks"] = "accepted: psum " + str(
+            ranks[0]["programs"]["probe"]["outputs"]["sum"].tolist())
+    except dryrun.RankFailed as e:
+        lines = [ln for ln in str(e).splitlines() if ln.strip()]
+        said = [ln for ln in lines if "Duplicate GPU" in ln or "NCCL" in ln]
+        out["nccl_two_ranks"] = "refused: " + " | ".join(
+            (said or lines[-1:])[-3:])[:600]
+    log(f"NCCL, two ranks on one card ({time.perf_counter() - t0:.1f} s): "
+        f"{out['nccl_two_ranks']}")
+    return out
+
+
+def _par_inputs(frames):
+    """The programs' arrays from the main path's 145 1080p frames: their
+    host-prep planes and the frames resized to 224 and 64."""
+    from avd_tpu_torch.ops import host_prep
+    from avd_tpu_torch.parallel import dryrun
+    spec = dryrun.full_spec()
+    t0 = time.perf_counter()
+    inputs = dryrun.make_inputs(spec, frames, host_prep.host_prep(frames))
+    shapes = ", ".join(f"{k} {list(v.shape)}" for k, v in inputs.items())
+    log(f"parallel inputs: {shapes} ({time.perf_counter() - t0:.1f} s)")
+    return spec, inputs
+
+
+def _par_row(rep):
+    return (f"{rep['ms']:.2f} ms, collectives {rep['collectives']}, "
+            f"launches {rep['launches']}")
+
+
+def phase_parallel_world1(frames):
+    """Phase 31: every program on a group of one rank over NCCL, in this
+    process, against its single-device result."""
+    import torch
+    from avd_tpu_torch.parallel import dryrun
+    spec, inputs = _par_inputs(frames)
+    programs = _par_programs(PAR_PROGRAMS)
+    t0 = time.perf_counter()
+    single_ms = {}
+    ref = dryrun.reference(programs + ["scoring"], inputs, spec, DEV, frames,
+                           times=single_ms, reps=2)
+    torch.cuda.synchronize()
+    log(f"parallel: single-device references in "
+        f"{time.perf_counter() - t0:.1f} s; warm ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in single_ms.items()))
+    _reset_counters()
+    rep = dryrun.run_in_process(programs, inputs, spec, DEV, "nccl", reps=2)
+    launches = _counters()
+    rows = {}
+    for name, r in rep["programs"].items():
+        err = dryrun.check(name, r["outputs"], ref[name])
+        nccl = sum(v for k, v in r["collectives"].items()
+                   if k.endswith("/nccl"))
+        check(r["collectives"]["staged"] == 0, f"{name} staged on NCCL")
+        rows[name] = {"ms": r["ms"], "single_device_ms": single_ms[name],
+                      "max_abs_err": err, "nccl_calls": nccl,
+                      "collectives": r["collectives"],
+                      "launches": r["launches"], "mesh": r["mesh"]}
+        log(f"world 1 NCCL {name}: {_par_row(r)}, max |Δ| {err:.3g}")
+    cp, it = rows["cp"]["launches"], rows["cp_iter"]["launches"]
+    check(cp["warp_bilinear"] > 0 and cp["box_blur_solve"] > 0
+          and cp["solve_iteration"] == 0, f"cp launches {cp}")
+    check(it["solve_iteration"] > 0 and it["warp_bilinear"] == 0,
+          f"cp with the fused round: launches {it}")
+    check(sum(r["nccl_calls"] for r in rows.values()) > 0,
+          "no NCCL call at world 1")
+    log(f"world 1 NCCL: launches over the programs {launches}")
+    rows["scoring"] = {"single_device_ms": single_ms["scoring"]}
+    return spec, inputs, ref, rows, launches
+
+
+def phase_parallel_ranks(spec, inputs, ref):
+    """Phase 32: the programs and scoring's sharded branch on 4 ranks
+    sharing the card over gloo (host-staged collectives), every rank's
+    result against the single-device one."""
+    from avd_tpu_torch.parallel import dryrun
+    programs = _par_programs(PAR_PROGRAMS) + ["scoring"]
+    t0 = time.perf_counter()
+    ranks = dryrun.launch(PAR_RANKS, DEV, programs, inputs=inputs, spec=spec,
+                          reps=2, timeout_s=RANKS_TIMEOUT_S)
+    log(f"{PAR_RANKS} ranks over gloo on one card: launch "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows = {}
+    for name in [p if isinstance(p, str) else p["name"] for p in programs]:
+        per = []
+        for r in ranks:
+            rep = r["programs"][name]
+            err = dryrun.check(name, rep["outputs"], ref[name])
+            check(rep["collectives"]["staged"] > 0,
+                  f"{name} on rank {r['rank']}: nothing staged over gloo")
+            per.append({"ms": rep["ms"], "max_abs_err": err,
+                        "collectives": rep["collectives"],
+                        "launches": rep["launches"]})
+            log(f"{PAR_RANKS} ranks {name} rank {r['rank']}: "
+                f"{_par_row(rep)}, max |Δ| {err:.3g}")
+        rows[name] = {"mesh": ranks[0]["programs"][name]["mesh"],
+                      "ranks": per}
+    for r in rows["cp"]["ranks"]:
+        check(r["launches"]["warp_bilinear"] > 0
+              and r["launches"]["box_blur_solve"] > 0,
+              f"cp rank launches {r['launches']}")
+    for r in rows["cp_iter"]["ranks"]:
+        check(r["launches"]["solve_iteration"] > 0,
+              f"cp with the fused round: rank launches {r['launches']}")
+    return rows
+
+
 def kernel_entry(name, source, replaces, rows, max_err, launches):
     ms = ROUNDS * sum(r[1] for r in rows)
     plain = ROUNDS * sum(r[2] for r in rows)
@@ -3004,6 +3160,10 @@ def main():
         train_rows = phase_training(fb)
         export_rows = phase_exported(frames)
         bench_rows = phase_detector_bench()
+        probe = phase_nccl_probe()
+        spec, par_inputs, par_ref, world1, w1_launches = \
+            phase_parallel_world1(frames)
+        par_rows = phase_parallel_ranks(spec, par_inputs, par_ref)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -3040,6 +3200,15 @@ def main():
     for entry in kernels:
         entry["streaming_launches"] = stream_launches.get(entry["name"], 0)
         entry["served_launches"] = served_launches.get(entry["name"], 0)
+    # the parallel path: counts over the world-1 programs (phase 31) and
+    # each rank's in phase 32 (programs cp and cp_iter)
+    for entry in kernels[:3]:
+        entry["parallel_launches"] = {
+            "world1_nccl": w1_launches[entry["name"]],
+            "ranks_gloo": [sum(r["launches"][entry["name"]] for r in
+                               (par_rows["cp"]["ranks"][i],
+                                par_rows["cp_iter"]["ranks"][i]))
+                           for i in range(PAR_RANKS)]}
     # what the fused round replaces: warp kernel + PyTorch update +
     # blur+solve kernel, same unit
     kernels[2]["unfused_sequence_ms"] = ROUNDS * sum(
@@ -3063,6 +3232,15 @@ def main():
     with open(os.path.join("chiprun_out", "families.json"), "w") as f:
         json.dump({"card": card, "scoring": family_rows,
                    "analyze_path": path_rows}, f, indent=1)
+    with open(os.path.join("chiprun_out", "parallel.json"), "w") as f:
+        json.dump({"card": card, "probe": probe, "world1_nccl": world1,
+                   f"ranks_{PAR_RANKS}_gloo": par_rows}, f, indent=1)
+    log("parallel (ms; one device / world 1 NCCL / each of 4 ranks over "
+        "gloo): " + "; ".join(
+            f"{k} {world1[k]['single_device_ms']:.2f} / "
+            f"{world1[k].get('ms', float('nan')):.2f} / " + ", ".join(
+                f"{r['ms']:.2f}" for r in par_rows[k]["ranks"])
+            for k in world1))
     with open(os.path.join("chiprun_out", "training.json"), "w") as f:
         json.dump({"card": card, "training": train_rows,
                    "exported": export_rows, "bench": bench_rows}, f,

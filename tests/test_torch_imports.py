@@ -4,6 +4,8 @@
   interpreter, since this test process has both loaded).
 * Entry points called without ``device`` raise when CUDA is absent: there
   is no silent CPU run (training, export and the detector tools too).
+* Only ``parallel/collectives.py`` calls ``torch.distributed``'s
+  collectives; a rank group asked for CUDA without it raises too.
 * A kernel wrapper given CPU tensors takes its plain version and leaves the
   launch counter alone.
 """
@@ -26,6 +28,7 @@ from avd_tpu_torch.models import cnn, detector, export, scoring, temporal
 from avd_tpu_torch.models import train
 from avd_tpu_torch.ops import audio_features, video_features
 from avd_tpu_torch.ops.kernels import attention, blur_solve, flow_iter, warp
+from avd_tpu_torch.parallel import distributed, dryrun
 from avd_tpu_torch.serve import app as serve_app
 from avd_tpu_torch.serve import batching
 from tools import torch_bench_detector, torch_eval_detector
@@ -65,7 +68,11 @@ for n in ("avd_tpu_torch.models", "avd_tpu_torch.models.detector",
           "avd_tpu_torch.client", "avd_tpu_torch.ingest.url",
           "avd_tpu_torch.models.optim", "avd_tpu_torch.models.train",
           "avd_tpu_torch.models.export", "avd_tpu_torch.ingest.codec",
-          "avd_tpu_torch.ops.fusion_device"):
+          "avd_tpu_torch.ops.fusion_device",
+          "avd_tpu_torch.parallel.collectives",
+          "avd_tpu_torch.parallel.mesh", "avd_tpu_torch.parallel.distributed",
+          "avd_tpu_torch.parallel.halo", "avd_tpu_torch.parallel.pipeline",
+          "avd_tpu_torch.parallel.dryrun"):
     assert n in names, n
 """
 
@@ -117,12 +124,37 @@ assert not bad, bad
 """
 
 
+# Of the port's modules only parallel/collectives.py calls
+# torch.distributed's collectives (the others create groups and meshes).
+_COLLECTIVE_CALLS = ("all_reduce", "all_gather", "all_to_all", "broadcast",
+                     "reduce_scatter", "batch_isend_irecv", "isend", "irecv",
+                     "send(", "recv(", "barrier(", "P2POp")
+
+
 def test_port_imports_no_jax_and_no_avd_tpu():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 54, r.stdout
+    assert n_modules >= 60, r.stdout
+
+
+def test_only_collectives_calls_torch_distributed_collectives():
+    pkg = os.path.join(REPO, "avd_tpu_torch")
+    offenders = []
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            path = os.path.join(root, name)
+            if not name.endswith(".py") or path.endswith(
+                    os.path.join("parallel", "collectives.py")):
+                continue
+            with open(path) as f:
+                for i, line in enumerate(f, 1):
+                    code = line.split("#")[0]
+                    if "dist." in code and any(c in code.split("dist.", 1)[1]
+                                               for c in _COLLECTIVE_CALLS):
+                        offenders.append(f"{path}:{i}: {line.strip()}")
+    assert offenders == []
 
 
 def test_port_tools_import_no_jax_and_no_avd_tpu():
@@ -238,6 +270,11 @@ _ENTRY_POINTS = {
     "tools.torch_eval_detector": lambda: torch_eval_detector.eval_checkpoint(
         n=0),
     "tools.torch_bench_detector": lambda: torch_bench_detector.bench("vit"),
+    "distributed.initialize": lambda: distributed.initialize(
+        world_size=2, rank=0, init_method="file:///nonexistent/store"),
+    "dryrun.launch": lambda: dryrun.launch(2),
+    "dryrun.run_in_process": lambda: dryrun.run_in_process(
+        ["cp"], {}, dryrun.small_spec()),
 }
 
 
