@@ -35,12 +35,14 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from avd_tpu_torch import device as device_mod
 from avd_tpu_torch.models import detector
 from avd_tpu_torch.models.detector import _bf16, _ln, _map_tree
 from avd_tpu_torch.parallel import collectives as col
 from avd_tpu_torch.parallel import mesh as mesh_mod
+from avd_tpu_torch.parallel import zero
 from avd_tpu_torch.parallel.mesh import P
 
 
@@ -104,10 +106,11 @@ def param_specs(cfg: CNNConfig) -> Dict[str, Any]:
 
     stages = []
     for si, depth in enumerate(cfg.depths):
-        st: Dict[str, Any] = {"blocks": [block() for _ in range(depth)]}
-        if si > 0:
+        st: Dict[str, Any] = {}
+        if si > 0:  # the keys in param_shapes' order (leaves_of's)
             st.update({"down_ln_scale": P(), "down_ln_bias": P(),
                        "down_w": P(), "down_b": P()})
+        st["blocks"] = [block() for _ in range(depth)]
         stages.append(st)
     return {
         "stem_w": P(), "stem_b": P(),
@@ -120,7 +123,7 @@ def param_specs(cfg: CNNConfig) -> Dict[str, Any]:
 
 def shard(mesh, params: Dict[str, Any], cfg: CNNConfig) -> Dict[str, Any]:
     """This rank's shards of the tree for ``forward(..., sharded=True)``."""
-    return mesh_mod.shard_params(mesh, params, param_specs(cfg))
+    return layout(mesh, cfg).shard(params)
 
 
 def param_shapes(cfg: CNNConfig) -> Dict[str, Any]:
@@ -208,58 +211,108 @@ def forward(params: Dict[str, Any], frames: torch.Tensor,
     ``model``): ``params`` are its shards (``shard``), ``frames`` the whole
     batch (any device, divisible by ``data``); every rank returns every
     logit."""
-    if sharded:
-        if mesh is None or not {"data", "model"} <= set(mesh.mesh_dim_names):
-            raise ValueError("sharded=True needs a mesh with 'data' and "
-                             "'model' dims")
-        frames = mesh_mod.batch_slice(mesh, frames, "data").to(
-            params["stem_w"].device)
+    if not sharded:
+        return _forward(params, frames, cfg)
+    detector._check_mesh(mesh)
+    frames = mesh_mod.batch_slice(mesh, frames, "data").to(
+        params["stem_w"].device)
+    return col.all_gather(_forward(params, frames, cfg, mesh), mesh,
+                          "data", dim=0)
+
+
+def _block(x, blk, mesh=None, specs=None):
+    """One ConvNeXt block; over ``mesh`` the MLP is this rank's share
+    (its input entering the region, one ``psum`` out, as
+    ``detector.block_forward_tp``), and with ``specs`` the block's FSDP
+    slices are all-gathered over ``data`` first."""
+    if specs is not None:
+        blk = zero.gather_leaves(blk, specs, mesh)
+    h = _dwconv(x, blk["dw_w"], blk["dw_b"])
+    h = _bf16(_ln(h.float(), blk["ln_scale"], blk["ln_bias"]))
+    if mesh is not None:
+        h = col.enter(h, mesh, "model")
+    h = h @ _bf16(blk["exp_w"]) + _bf16(blk["exp_b"])
+    h = F.gelu(h, approximate="tanh")
+    if mesh is not None:  # the row-sharded project's Megatron psum
+        h = _bf16(col.psum(detector._partial(h, blk["proj_w"]),
+                           mesh, "model")) + _bf16(blk["proj_b"])
+    else:
+        h = h @ _bf16(blk["proj_w"]) + _bf16(blk["proj_b"])
+    return x + _bf16(blk["gamma"]) * h
+
+
+def _forward(params: Dict[str, Any], frames: torch.Tensor, cfg: CNNConfig,
+             mesh=None, fsdp_specs=None) -> torch.Tensor:
+    """The forward on one device, or this rank's share over ``mesh`` on its
+    own ``data`` slice of the frames (``fsdp_specs``: ``params`` hold FSDP
+    slices, gathered a block at a time and again when the backward pass
+    recomputes the block)."""
+    top = {k: v for k, v in params.items() if k != "stages"}
+    if fsdp_specs is not None:
+        top = zero.gather_leaves(top, {k: fsdp_specs[k] for k in top}, mesh)
     x = _patch_merge(_bf16(frames), cfg.stem_patch)
-    x = x @ _bf16(params["stem_w"]) + _bf16(params["stem_b"])
-    x = _bf16(_ln(x.float(), params["stem_ln_scale"],
-                  params["stem_ln_bias"]))
+    x = x @ _bf16(top["stem_w"]) + _bf16(top["stem_b"])
+    x = _bf16(_ln(x.float(), top["stem_ln_scale"],
+                  top["stem_ln_bias"]))
     for si, st in enumerate(params["stages"]):
+        sspec = None if fsdp_specs is None else fsdp_specs["stages"][si]
         if si > 0:
-            x = _bf16(_ln(x.float(), st["down_ln_scale"],
-                          st["down_ln_bias"]))
+            down = {k: v for k, v in st.items() if k != "blocks"}
+            if sspec is not None:
+                down = zero.gather_leaves(down, {k: sspec[k] for k in down},
+                                          mesh)
+            x = _bf16(_ln(x.float(), down["down_ln_scale"],
+                          down["down_ln_bias"]))
             x = _patch_merge(x, 2)
-            x = x @ _bf16(st["down_w"]) + _bf16(st["down_b"])
-        for blk in st["blocks"]:
-            h = _dwconv(x, blk["dw_w"], blk["dw_b"])
-            h = _bf16(_ln(h.float(), blk["ln_scale"], blk["ln_bias"]))
-            h = h @ _bf16(blk["exp_w"]) + _bf16(blk["exp_b"])
-            h = F.gelu(h, approximate="tanh")
-            if sharded:  # the row-sharded project's Megatron psum
-                h = _bf16(col.psum(detector._partial(h, blk["proj_w"]),
-                                   mesh, "model")) + _bf16(blk["proj_b"])
+            x = x @ _bf16(down["down_w"]) + _bf16(down["down_b"])
+        for bi, blk in enumerate(st["blocks"]):
+            if sspec is not None and torch.is_grad_enabled():
+                x = torch_checkpoint.checkpoint(
+                    _block, x, blk, mesh, sspec["blocks"][bi],
+                    use_reentrant=False)
             else:
-                h = h @ _bf16(blk["proj_w"]) + _bf16(blk["proj_b"])
-            x = x + _bf16(blk["gamma"]) * h
+                x = _block(x, blk, mesh,
+                           None if sspec is None else sspec["blocks"][bi])
     # global average pool (f32) → final LN → head
     g = x.float().mean(dim=(1, 2))
-    g = _ln(g, params["ln_f_scale"].float(), params["ln_f_bias"].float())
-    logits = g @ params["head_w"].float() + params["head_b"].float()
-    if sharded:
-        return col.all_gather(logits, mesh, "data", dim=0)
-    return logits
+    g = _ln(g, top["ln_f_scale"].float(), top["ln_f_bias"].float())
+    return g @ top["head_w"].float() + top["head_b"].float()
+
+
+def layout(mesh, cfg: CNNConfig, fsdp: bool = False) -> zero.Layout:
+    """Where the sharded forward's and step's tree lives on a rank: each
+    leaf cut by ``param_specs``, with ``fsdp`` also over ``data``."""
+    specs = param_specs(cfg)
+    if fsdp:
+        specs = zero.fsdp_param_specs(param_shapes(cfg), specs,
+                                      col.axis_size(mesh, "data"))
+    return zero.Layout(mesh, specs)
 
 
 def loss_fn(params, frames, labels, cfg: CNNConfig,
-            logit_l2: float = 0.0) -> torch.Tensor:
+            logit_l2: float = 0.0, mesh=None, fsdp_specs=None
+            ) -> torch.Tensor:
     """Sigmoid BCE in f32 (labels [B] in {0, 1}) plus the optional
-    logit-scale regulariser (``detector._logit_l2``)."""
-    z = forward(params, frames, cfg)[:, 0]
+    logit-scale regulariser (``detector._logit_l2``); with ``mesh``, this
+    rank's share on its ``data`` slice (``detector.loss_fn``)."""
+    z = _forward(params, frames, cfg, mesh, fsdp_specs)[:, 0]
     loss = detector._bce(z, labels)
     if logit_l2:
         loss = loss + detector._logit_l2(z, logit_l2)
     return loss
 
 
-def make_train_step(cfg: CNNConfig, optimizer, logit_l2: float = 0.0):
+def make_train_step(cfg: CNNConfig, optimizer, logit_l2: float = 0.0,
+                    sharded: bool = False, mesh=None, zero_mode=None):
     """(params, opt_state, frames, labels) → (params, opt_state, loss): the
-    shared optimizer step over this family's loss."""
+    shared optimizer step over this family's loss (over a rank group with
+    ``sharded``, as ``detector.make_train_step``)."""
+    specs = layout(mesh, cfg, zero_mode == "fsdp").specs if sharded \
+        else None
     return detector.make_train_step(cfg, optimizer, loss=loss_fn,
-                                    logit_l2=logit_l2)
+                                    logit_l2=logit_l2, sharded=sharded,
+                                    mesh=mesh, zero_mode=zero_mode,
+                                    specs=specs)
 
 
 make_optimizer = detector.make_optimizer

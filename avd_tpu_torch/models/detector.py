@@ -43,6 +43,13 @@ all-gather into it).  ``forward_pipelined`` runs the layer stack as a
 GPipe pipeline over ``stage`` (``parallel/pipeline.py``), alone or with
 ``data`` and, dense only, ``model``.  The sharded programs keep the einsum
 attention, as ``avd_tpu`` does.
+
+Training over a rank group: ``make_train_step(..., sharded=True)`` is the
+dp × tp step (each rank's loss on its ``data`` slice, the gradients
+averaged over ``data`` by ``parallel/zero.py``, with ZeRO-1 or FSDP on
+request), ``make_pp_train_step`` the GPipe step; ``layout`` and
+``pp_layout`` say where a rank's slices of the tree live, and
+``load_checkpoint_sharded`` restores a checkpoint straight into them.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from avd_tpu_torch.ops.kernels import attention as attention_k
 from avd_tpu_torch.parallel import collectives as col
 from avd_tpu_torch.parallel import mesh as mesh_mod
 from avd_tpu_torch.parallel import pipeline as pl
+from avd_tpu_torch.parallel import zero
 from avd_tpu_torch.parallel.mesh import P
 
 
@@ -412,12 +420,36 @@ def _tp_shuffle_qkv(layers, cfg: ViTConfig):
             for lp in layers]
 
 
+def _tp_unshuffle_qkv(layers, cfg: ViTConfig):
+    """The inverse of ``_tp_shuffle_qkv``."""
+    idx = np.arange(3 * cfg.width).reshape(3, cfg.heads, cfg.head_dim)
+    inv = np.argsort(idx.transpose(1, 0, 2).reshape(-1))
+    inv = torch.from_numpy(inv)
+    return [dict(lp, qkv_w=lp["qkv_w"][:, inv.to(lp["qkv_w"].device)],
+                 qkv_b=lp["qkv_b"][inv.to(lp["qkv_b"].device)])
+            for lp in layers]
+
+
+def layout(mesh, cfg: ViTConfig, fsdp: bool = False) -> zero.Layout:
+    """Where the tree of ``forward(..., sharded=True)`` and the sharded
+    train step lives on a rank: the qkv columns head-major, each leaf cut
+    by ``param_specs``, and with ``fsdp`` also over ``data``
+    (``zero.fsdp_param_specs``)."""
+    specs = param_specs(cfg)
+    if fsdp:
+        specs = zero.fsdp_param_specs(param_shapes(cfg), specs,
+                                      col.axis_size(mesh, "data"))
+    return zero.Layout(
+        mesh, specs,
+        lambda t: dict(t, layers=_tp_shuffle_qkv(t["layers"], cfg)),
+        lambda t: dict(t, layers=_tp_unshuffle_qkv(t["layers"], cfg)))
+
+
 def shard(mesh, params: Dict[str, Any], cfg: ViTConfig) -> Dict[str, Any]:
     """This rank's shards of the tree for ``forward(..., sharded=True)``:
     the qkv columns head-major (``_tp_shuffle_qkv``), then each leaf cut
     by ``param_specs``."""
-    tree = dict(params, layers=_tp_shuffle_qkv(params["layers"], cfg))
-    return mesh_mod.shard_params(mesh, tree, param_specs(cfg))
+    return layout(mesh, cfg).shard(params)
 
 
 def _pad_tokens(x: torch.Tensor, t: int) -> torch.Tensor:
@@ -431,7 +463,7 @@ def _pad_tokens(x: torch.Tensor, t: int) -> torch.Tensor:
 def block_forward_tp(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
                      mesh, axis: str = "model",
                      router_x: Optional[torch.Tensor] = None,
-                     seq_tokens: int = 0) -> torch.Tensor:
+                     seq_tokens: int = 0, with_aux: bool = False):
     """One transformer block with the Megatron collectives written out
     (``avd_tpu/models/detector.py:406-453``).
 
@@ -445,13 +477,19 @@ def block_forward_tp(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
     to bf16 once after the sum and its bias added before the residual, as
     ``block_forward_aux`` rounds and adds on one device.  (``avd_tpu``
     sums bf16 partials and adds the bias after the residual, which costs
-    most of the 2e-2 logit budget on the trained ``full`` ViT.)
+    most of the 2e-2 logit budget on the trained ``full`` ViT.)  Each
+    region's input enters through ``col.enter`` (the identity; its
+    gradient summed over ``axis``), as does the routing's combine tensor
+    before a rank takes its experts' columns, so the gradients of the
+    replicated leaves are whole and equal on every rank.
 
     ``seq_tokens`` > 0 is Megatron sequence parallelism: ``x`` is this
     rank's block of the residual's token axis (the stream of
     ``seq_tokens`` tokens, zero-padded to a multiple of the axis), a
     region's input is all-gathered over tokens after its LayerNorm and its
-    exit reduce-scattered over tokens."""
+    exit reduce-scattered over tokens.  ``with_aux`` returns ``(x', aux)``,
+    ``aux`` the MoE load-balancing loss of this rank's examples (0.0 for a
+    dense layer)."""
     m = col.axis_size(mesh, axis)
     if seq_tokens:
         t_pad = x.shape[1] * m
@@ -464,7 +502,7 @@ def block_forward_tp(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
                                           dim=1))
     else:
         def enter(h):
-            return h
+            return col.enter(h, mesh, axis)
 
         def leave(y):
             return _bf16(col.psum(y, mesh, axis))
@@ -483,16 +521,24 @@ def block_forward_tp(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
     x = x + (leave(_partial(o, lp["proj_w"])) + _bf16(lp["proj_b"]))
 
     h = enter(_bf16(_ln(x.float(), lp["ln2_scale"], lp["ln2_bias"])))
+    aux = 0.0
     if "router_w" in lp:
-        disp, comb, _, _ = _moe_route(h, lp, cfg, router_x)
+        disp, comb, onehot, gate = _moe_route(h, lp, cfg, router_x)
+        comb = col.enter(comb, mesh, axis)
         n_local = lp["moe_in_w"].shape[0]
         e0 = col.axis_index(mesh, axis) * n_local
         y = _experts(h, disp[:, :, e0:e0 + n_local],
                      comb[:, :, e0:e0 + n_local], lp, partial=True)
-        return x + leave(y)
-    h = h @ _bf16(lp["mlp_in_w"]) + _bf16(lp["mlp_in_b"])
-    h = F.gelu(h, approximate="tanh")
-    return x + (leave(_partial(h, lp["mlp_out_w"])) + _bf16(lp["mlp_out_b"]))
+        x = x + leave(y)
+        if with_aux:
+            aux = cfg.n_experts * (onehot.mean(dim=1) * gate.mean(dim=1)
+                                   ).sum(dim=-1).mean()
+    else:
+        h = h @ _bf16(lp["mlp_in_w"]) + _bf16(lp["mlp_in_b"])
+        h = F.gelu(h, approximate="tanh")
+        x = x + (leave(_partial(h, lp["mlp_out_w"]))
+                 + _bf16(lp["mlp_out_b"]))
+    return (x, aux) if with_aux else x
 
 
 def _partial(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -521,14 +567,21 @@ def forward(params: Dict[str, Any], frames: torch.Tensor,
     ``sharded`` runs this rank's share over ``mesh`` (dims ``data`` and
     ``model``): ``params`` are its shards (``shard``), ``frames`` the
     whole batch (any device; the batch must divide by ``data``); every
-    rank returns every logit.  ``seq_sharded`` adds sequence parallelism
-    (``block_forward_tp``)."""
+    rank returns every logit, and ``with_aux`` the mean of the ranks'
+    losses over ``data`` (the global batch's: the slices are equal).
+    ``seq_sharded`` adds sequence parallelism (``block_forward_tp``)."""
     if sharded:
-        if with_aux:
-            raise ValueError("the sharded forward serves inference; the MoE "
-                             "loss under a mesh belongs to the training "
-                             "slice (ROADMAP.md)")
-        return _forward_sharded(params, frames, cfg, mesh, seq_sharded)
+        _check_mesh(mesh)
+        frames = mesh_mod.batch_slice(mesh, frames, "data").to(
+            params["patch_w"].device)
+        logits, aux = _forward_local(params, frames, cfg, mesh, seq_sharded)
+        logits = col.all_gather(logits, mesh, "data", dim=0)
+        if not with_aux:
+            return logits
+        n = col.axis_size(mesh, "data")
+        return logits, col.psum(torch.as_tensor(
+            aux, dtype=torch.float32, device=logits.device), mesh,
+            "data") / n
     x = embed(params, frames, cfg)
     router_x = (_router_features(params, frames, cfg) if cfg.n_experts
                 else None)
@@ -546,15 +599,31 @@ def forward(params: Dict[str, Any], frames: torch.Tensor,
     return (logits, aux_total) if with_aux else logits
 
 
-def _forward_sharded(params, frames, cfg: ViTConfig, mesh,
-                     seq_sharded: bool) -> torch.Tensor:
+def _check_mesh(mesh) -> None:
     if mesh is None or not {"data", "model"} <= set(mesh.mesh_dim_names):
         raise ValueError("sharded=True needs a mesh with 'data' and "
                          "'model' dims")
-    dev = params["patch_w"].device
-    frames = mesh_mod.batch_slice(mesh, frames, "data").to(dev)
-    x = embed(params, frames, cfg)
-    router_x = (_router_features(params, frames, cfg) if cfg.n_experts
+
+
+def _fsdp_block(x, lp, lspecs, cfg, mesh, router_x):
+    return block_forward_tp(x, zero.gather_leaves(lp, lspecs, mesh), cfg,
+                            mesh, "model", router_x, with_aux=True)
+
+
+def _forward_local(params, frames, cfg: ViTConfig, mesh,
+                   seq_sharded: bool = False, fsdp_specs=None):
+    """This rank's share of the sharded forward on its own ``frames`` (its
+    ``data`` slice, on its device) → (its logits, its examples' MoE loss).
+
+    ``fsdp_specs`` (``parallel/zero.fsdp_param_specs``): ``params`` hold
+    this rank's FSDP slices; each block all-gathers its leaves over
+    ``data`` when it runs and again when the backward pass recomputes it,
+    so one block's gathered weights live at a time."""
+    top = {k: v for k, v in params.items() if k != "layers"}
+    if fsdp_specs is not None:
+        top = zero.gather_leaves(top, {k: fsdp_specs[k] for k in top}, mesh)
+    x = embed(top, frames, cfg)
+    router_x = (_router_features(top, frames, cfg) if cfg.n_experts
                 else None)
     seq_tokens = 0
     if seq_sharded:
@@ -562,11 +631,24 @@ def _forward_sharded(params, frames, cfg: ViTConfig, mesh,
         seq_tokens = cfg.tokens
         x = _pad_tokens(x, -(-seq_tokens // m) * m)
         x = x.chunk(m, dim=1)[col.axis_index(mesh, "model")].contiguous()
-    for lp in params["layers"]:
-        x = block_forward_tp(x, lp, cfg, mesh, "model", router_x, seq_tokens)
+    ckpt = torch.is_grad_enabled() and (cfg.remat or fsdp_specs is not None)
+    aux_total = 0.0
+    for i, lp in enumerate(params["layers"]):
+        if fsdp_specs is not None:
+            x, aux = torch_checkpoint.checkpoint(
+                _fsdp_block, x, lp, fsdp_specs["layers"][i], cfg, mesh,
+                router_x, use_reentrant=False)
+        elif ckpt:
+            x, aux = torch_checkpoint.checkpoint(
+                block_forward_tp, x, lp, cfg, mesh, "model", router_x,
+                seq_tokens, True, use_reentrant=False)
+        else:
+            x, aux = block_forward_tp(x, lp, cfg, mesh, "model", router_x,
+                                      seq_tokens, with_aux=True)
+        aux_total = aux_total + aux
     if seq_sharded:
         x = col.all_gather(x, mesh, "model", dim=1)[:, :seq_tokens]
-    return col.all_gather(head(params, x), mesh, "data", dim=0)
+    return head(top, x), aux_total
 
 
 def forward_pipelined(params: Dict[str, Any], frames: torch.Tensor,
@@ -586,17 +668,18 @@ def forward_pipelined(params: Dict[str, Any], frames: torch.Tensor,
     ``tp=True`` also slices every stage's blocks over ``model``
     (``block_forward_tp``, dense only; heads and MLP width must divide by
     the axis): the dp × pp × tp configuration."""
-    names = mesh.mesh_dim_names
+    _check_pipeline(cfg, mesh, tp)
+    return _forward_pp(pp_layout(mesh, cfg, tp).shard(params), frames, cfg,
+                       mesh, n_micro, tp)
+
+
+def _check_pipeline(cfg: ViTConfig, mesh, tp: bool) -> None:
     n_stages = col.axis_size(mesh, "stage")
     if cfg.depth % n_stages:
         raise ValueError(f"depth {cfg.depth} not divisible by "
                          f"{n_stages} stages")
-    n_micro = n_micro or n_stages
-    B = frames.shape[0]
-    if B % n_micro:
-        raise ValueError(f"batch {B} not divisible by {n_micro} microbatches")
     if tp:
-        if "model" not in names:
+        if "model" not in mesh.mesh_dim_names:
             raise ValueError("tp=True needs a 'model' mesh axis")
         if cfg.n_experts:
             raise ValueError("tp=True composes dense blocks only "
@@ -606,57 +689,102 @@ def forward_pipelined(params: Dict[str, Any], frames: torch.Tensor,
         if cfg.heads % m or cfg.mlp_width % m:
             raise ValueError(f"heads {cfg.heads} / mlp {cfg.mlp_width} "
                              f"not divisible by model axis {m}")
+
+
+def pp_layout(mesh, cfg: ViTConfig, tp: bool = False) -> zero.Layout:
+    """Where the pipeline's tree lives on a rank: the embedding and head
+    leaves replicated, the layers stacked ``[depth, ...]`` under
+    ``"stages"`` and cut over ``stage`` (with ``tp``, also over ``model``
+    by ``param_specs`` after the head-major qkv shuffle)."""
+    layer_specs = param_specs(cfg)["layers"][0]
+    stage = {k: P("stage", *(layer_specs[k] if tp else ()))
+             for k in layer_specs}
+    top = {k: P() for k in param_specs(cfg) if k != "layers"}
+
+    def permute(tree):
+        layers = tree["layers"]
+        if tp:
+            layers = _tp_shuffle_qkv(layers, cfg)
+        out = {k: v for k, v in tree.items() if k != "layers"}
+        out["stages"] = pl.stack_layers(layers)
+        return out
+
+    def unpermute(pp):
+        n = next(iter(pp["stages"].values())).shape[0]
+        layers = [{k: v[i] for k, v in pp["stages"].items()}
+                  for i in range(n)]
+        if tp:
+            layers = _tp_unshuffle_qkv(layers, cfg)
+        out = {k: v for k, v in pp.items() if k != "stages"}
+        out["layers"] = layers
+        return out
+
+    return zero.Layout(mesh, dict(top, stages=stage), permute, unpermute)
+
+
+def _pp_rows(mesh, x: torch.Tensor, n_micro: int) -> torch.Tensor:
+    """A batch [B, ...] → this rank's rows, microbatch-major: the batch cut
+    into ``n_micro`` microbatches, each sliced over ``data``."""
+    B = x.shape[0]
+    if B % n_micro:
+        raise ValueError(f"batch {B} not divisible by {n_micro} microbatches")
     mb = B // n_micro
-    n_data = col.axis_size(mesh, "data") if "data" in names else 1
+    n_data = col.axis_size(mesh, "data") \
+        if "data" in mesh.mesh_dim_names else 1
     if mb % n_data:
         raise ValueError(f"microbatch {mb} not divisible by data axis "
                          f"{n_data}")
-    dev = params["patch_w"].device
-    f = frames.reshape((n_micro, mb) + tuple(frames.shape[1:]))
+    f = x.reshape((n_micro, mb) + tuple(x.shape[1:]))
     if n_data > 1:
         f = mesh_mod.batch_slice(mesh, f.transpose(0, 1), "data") \
             .transpose(0, 1)
-    f = f.reshape((-1,) + tuple(frames.shape[1:])).to(dev)
+    return f.reshape((-1,) + tuple(x.shape[1:]))
+
+
+def _forward_pp(pp: Dict[str, Any], frames: torch.Tensor, cfg: ViTConfig,
+                mesh, n_micro: int = 0, tp: bool = False,
+                gather: bool = True) -> torch.Tensor:
+    """The pipelined forward on this rank's ``pp_layout`` slices ``pp``;
+    ``gather=False`` returns this rank's logits alone, in ``_pp_rows``
+    order (the training loss)."""
+    names = mesh.mesh_dim_names
+    n_stages = col.axis_size(mesh, "stage")
+    n_micro = n_micro or n_stages
+    B = frames.shape[0]
+    f = _pp_rows(mesh, frames, n_micro).to(pp["patch_w"].device)
     rows = f.shape[0] // n_micro
 
     def micro(t):
         return t.reshape(n_micro, rows, cfg.tokens, cfg.width)
 
-    xs = micro(embed(params, f, cfg))
-    layers = params["layers"]
+    xs = micro(embed(pp, f, cfg))
     if cfg.n_experts:
         # the pre-gating features ride the ring as a second leaf
-        xs = (xs, micro(_router_features(params, f, cfg)))
+        xs = (xs, micro(_router_features(pp, f, cfg)))
 
         def stage_fn(sp, xm):
             h, r = xm
             return (pl.scan_layers(
                 lambda hc, lp: block_forward_aux(hc, lp, cfg, r)[0], sp, h),
                 r)
-        specs = {k: P("stage") for k in layers[0]}
     elif tp:
-        layers = _tp_shuffle_qkv(layers, cfg)
-        specs = {k: P("stage", *s)
-                 for k, s in param_specs(cfg)["layers"][0].items()}
-
         def stage_fn(sp, xm):
             return pl.scan_layers(
                 lambda h, lp: block_forward_tp(h, lp, cfg, mesh, "model"),
                 sp, xm)
     else:
-        specs = {k: P("stage") for k in layers[0]}
-
         def stage_fn(sp, xm):
             return pl.scan_layers(
                 lambda h, lp: block_forward_aux(h, lp, cfg)[0], sp, xm)
 
-    stage_params = mesh_mod.shard_params(mesh, pl.stack_layers(layers), specs)
-    ys = pl.gpipe(stage_fn, stage_params, xs, n_stages, mesh)
+    ys = pl.gpipe(stage_fn, pp["stages"], xs, n_stages, mesh)
     if cfg.n_experts:
         ys = ys[0]
-    logits = head(params, ys.reshape(-1, cfg.tokens, cfg.width))
+    logits = head(pp, ys.reshape(-1, cfg.tokens, cfg.width))
+    if not gather:
+        return logits
     logits = logits.reshape(n_micro, rows, -1)
-    if n_data > 1:
+    if "data" in names and col.axis_size(mesh, "data") > 1:
         logits = col.all_gather(logits, mesh, "data", dim=1)
     return logits.reshape(B, -1)
 
@@ -682,11 +810,19 @@ def _logit_l2(z: torch.Tensor, coef: float) -> torch.Tensor:
 
 
 def loss_fn(params, frames, labels, cfg: ViTConfig,
-            logit_l2: float = 0.0) -> torch.Tensor:
+            logit_l2: float = 0.0, mesh=None, fsdp_specs=None
+            ) -> torch.Tensor:
     """Sigmoid BCE in f32 (labels [B] in {0, 1}); an MoE config adds the
     Switch load-balancing loss at 0.01, ``logit_l2`` the score-scale
-    regulariser."""
-    out, aux = forward(params, frames, cfg, with_aux=True)
+    regulariser.  With ``mesh``, ``params`` are this rank's shards
+    (``layout``; ``fsdp_specs`` for FSDP slices) and ``frames``/``labels``
+    its ``data`` slice of the batch: the loss is this rank's share, which
+    the step averages over ``data``."""
+    if mesh is None:
+        out, aux = forward(params, frames, cfg, with_aux=True)
+    else:
+        out, aux = _forward_local(params, frames, cfg, mesh,
+                                  fsdp_specs=fsdp_specs)
     z = out[:, 0]
     loss = _bce(z, labels)
     if cfg.n_experts:
@@ -696,25 +832,102 @@ def loss_fn(params, frames, labels, cfg: ViTConfig,
     return loss
 
 
-def make_train_step(cfg, optimizer, loss=None, logit_l2: float = 0.0):
+def _grads(lval, leaves):
+    # a leaf the loss does not use gets a zero gradient, as in JAX
+    return torch.autograd.grad(lval, leaves, materialize_grads=True)
+
+
+def make_train_step(cfg, optimizer, loss=None, logit_l2: float = 0.0,
+                    sharded: bool = False, mesh=None, zero_mode=None,
+                    specs=None):
     """(params, opt_state, frames, labels) → (params, opt_state, loss).
 
     ``params`` is the f32 tree; the step takes the gradients of ``loss``
     (default this module's ``loss_fn``; the CNN and temporal families pass
     their own) with autograd and lets ``optimizer`` (``optim.AdamW``)
-    update the leaves in place."""
-    loss = loss or loss_fn
+    update the leaves in place.
 
-    def step(params, opt_state, frames, labels):
+    ``sharded`` is the step over ``mesh``'s (``data``, ``model``) ranks
+    (``avd_tpu/models/detector.py:656-672``): ``params`` hold this rank's
+    slices as ``specs`` lay them out (default ``layout(mesh, cfg)``'s;
+    the CNN and temporal families pass theirs), ``frames`` and ``labels``
+    the whole batch, of which the step keeps its ``data`` slice;
+    ``zero_mode`` is ``parallel/zero.py``'s (``None``: replicated over
+    ``data``; ``"zero1"``; ``"fsdp"``, with ``specs`` the FSDP ones).  The
+    optimizer state comes from ``step.dp.init(leaves)``, and the loss
+    returned is the global batch's."""
+    loss = loss or loss_fn
+    if not sharded:
+        if zero_mode:
+            raise ValueError(f"zero_mode={zero_mode!r} needs sharded=True "
+                             "and a mesh")
+
+        def step(params, opt_state, frames, labels):
+            leaves = optim.leaves_of(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            lval = loss(params, frames, labels, cfg, logit_l2=logit_l2)
+            optimizer.update(leaves, _grads(lval, leaves), opt_state)
+            return params, opt_state, lval.detach()
+
+        return step
+
+    _check_mesh(mesh)
+    if specs is None:
+        specs = layout(mesh, cfg, fsdp=zero_mode == "fsdp").specs
+    dp = zero.DataParallel(optimizer, mesh, zero.spec_leaves(specs),
+                           zero_mode or "replicated")
+    fsdp_specs = specs if zero_mode == "fsdp" else None
+
+    def sharded_step(params, opt_state, frames, labels):
         leaves = optim.leaves_of(params)
+        dev = leaves[0].device
         for p in leaves:
             p.requires_grad_(True)
-        lval = loss(params, frames, labels, cfg, logit_l2=logit_l2)
-        # a leaf the loss does not use gets a zero gradient, as in JAX
-        grads = torch.autograd.grad(lval, leaves, materialize_grads=True)
-        optimizer.update(leaves, grads, opt_state)
-        return params, opt_state, lval.detach()
+        lval = loss(params, mesh_mod.batch_slice(mesh, frames).to(dev),
+                    mesh_mod.batch_slice(mesh, labels).to(dev), cfg,
+                    logit_l2=logit_l2, mesh=mesh, fsdp_specs=fsdp_specs)
+        dp.update(leaves, _grads(lval, leaves), opt_state)
+        return params, opt_state, dp.mean(lval.detach())
 
+    sharded_step.dp = dp
+    return sharded_step
+
+
+def make_pp_train_step(cfg: ViTConfig, optimizer, mesh, n_micro: int = 0,
+                       tp: bool = False):
+    """The train step whose forward runs pipeline-parallel over ``mesh``'s
+    ``stage`` dim (``avd_tpu/models/detector.py:675-696``): ``params`` are
+    this rank's ``pp_layout(mesh, cfg, tp)`` slices, ``frames`` and
+    ``labels`` the whole batch; each rank takes the BCE on its ``data``
+    rows and the gradients flow back through the GPipe schedule
+    (``parallel/pipeline.py``), then average over ``data``.  Dense configs:
+    the MoE loss is not collected on the pipelined path in ``avd_tpu``,
+    so an MoE config raises here (``avd_tpu`` trains it
+    without its load-balancing loss).  The optimizer state comes from
+    ``step.dp.init``."""
+    if cfg.n_experts:
+        raise ValueError("the pipelined loss collects no MoE "
+                         "load-balancing loss: dense configs only "
+                         "(avd_tpu/models/detector.py:680-681)")
+    _check_pipeline(cfg, mesh, tp)
+    lay = pp_layout(mesh, cfg, tp)
+    dp = zero.DataParallel(optimizer, mesh, zero.spec_leaves(lay.specs))
+    n_micro = n_micro or col.axis_size(mesh, "stage")
+
+    def step(pp, opt_state, frames, labels):
+        leaves = optim.leaves_of(pp)
+        for p in leaves:
+            p.requires_grad_(True)
+        logits = _forward_pp(pp, frames, cfg, mesh, n_micro, tp,
+                             gather=False)
+        rows = _pp_rows(mesh, labels, n_micro).to(logits.device)
+        lval = _bce(logits[:, 0], rows)
+        dp.update(leaves, _grads(lval, leaves), opt_state)
+        return pp, opt_state, dp.mean(lval.detach())
+
+    step.dp = dp
+    step.layout = lay
     return step
 
 
@@ -762,3 +975,16 @@ def interpolate_pos_emb(params: Dict[str, Any],
         [pos[:1], resized.reshape(g_new * g_new, pos.shape[1])]).to(
             params["pos_emb"].device)
     return out
+
+
+def load_checkpoint_sharded(path: str, cfg, lay: zero.Layout, device=None):
+    """Restore the checkpoint directory ``path`` (the port's ``params.npz``)
+    straight into this rank's slices under ``lay`` (``layout``,
+    ``pp_layout``, the FSDP layout, or another family's): each rank reads
+    the file and puts only its slices on ``device`` (default CUDA)
+    (``avd_tpu/models/detector.py:790-814``).  Any family whose
+    ``convert.load_checkpoint`` reads the file."""
+    from avd_tpu_torch.models import convert
+    dev = device_mod.resolve(device)
+    return _map_tree(lambda _, x: x.to(dev),
+                     lay.shard(convert.load_checkpoint(path, cfg)))

@@ -108,9 +108,12 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, leaves: List[torch.Tensor], grads: List[torch.Tensor],
-               state: Dict) -> bool:
+               state: Dict, sq_sum=None) -> bool:
         """Apply one call's gradients to ``leaves`` in place; True when the
-        parameters moved (always, unless a mini-step of accumulation)."""
+        parameters moved (always, unless a mini-step of accumulation).
+        ``sq_sum(grads)`` gives the clip's squared global norm where the
+        leaves are shards of a larger tree (``parallel/zero.py``); by
+        default the sum of squares of ``grads`` themselves."""
         grads = [g.float() for g in grads]
         if self.accum > 1:
             n = state["mini_step"]
@@ -125,7 +128,7 @@ class AdamW:
                 a.zero_()
             state["mini_step"] = 0
         if self.grad_clip > 0:
-            grads = _clip_by_global_norm(grads, self.grad_clip)
+            grads = _clip_by_global_norm(grads, self.grad_clip, sq_sum)
         self._adamw(leaves, grads, state)
         return True
 
@@ -149,10 +152,15 @@ class AdamW:
         state["mu"], state["nu"], state["count"] = mu, nu, c
 
 
-def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
+def sum_of_squares(grads: List[torch.Tensor]) -> torch.Tensor:
+    return torch.stack([torch.sum(g * g) for g in grads]).sum()
+
+
+def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                         sq_sum=None):
     """``optax.clip_by_global_norm``: ``g / norm * max_norm`` unless the
     global norm is below ``max_norm``; no host synchronisation."""
-    norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+    norm = torch.sqrt((sq_sum or sum_of_squares)(grads))
     keep = norm < max_norm
     return [torch.where(keep, g, g / norm * max_norm) for g in grads]
 
@@ -189,3 +197,17 @@ def leaves_of(tree, out: Optional[list] = None) -> List[torch.Tensor]:
         else:
             out.append(v)
     return out
+
+
+def unflatten(tree, leaves: List[torch.Tensor]):
+    """A tree of ``tree``'s structure holding ``leaves`` in ``leaves_of``
+    order (the inverse of ``leaves_of``)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        return next(it)
+    return build(tree)

@@ -42,6 +42,7 @@ from avd_tpu_torch.models.detector import _bf16, _ln, _map_tree, patchify
 from avd_tpu_torch.parallel import attention as pattn
 from avd_tpu_torch.parallel import collectives as col
 from avd_tpu_torch.parallel import mesh as mesh_mod
+from avd_tpu_torch.parallel import zero
 from avd_tpu_torch.parallel.mesh import P
 
 
@@ -313,10 +314,14 @@ def forward_time_sharded(params: Dict[str, Any], frames: torch.Tensor,
 
 
 def loss_fn(params, frames, labels, cfg: TemporalConfig,
-            logit_l2: float = 0.0) -> torch.Tensor:
+            logit_l2: float = 0.0, mesh=None, fsdp_specs=None
+            ) -> torch.Tensor:
     """Per-frame sigmoid BCE (labels [B, T] in {0, 1}), the optional
     logit-scale regulariser, and ``aux_frame_loss`` times the same two
-    terms on the per-frame head."""
+    terms on the per-frame head.  Over a rank group the family trains
+    data-parallel (``make_train_step``): ``frames`` are the rank's clips,
+    and ``mesh`` and ``fsdp_specs`` change nothing here."""
+    del mesh, fsdp_specs
     out, aux = forward(params, frames, cfg, return_aux=True)
     z = out[..., 0].reshape(-1)
     y = labels.reshape(-1)
@@ -332,10 +337,23 @@ def loss_fn(params, frames, labels, cfg: TemporalConfig,
     return loss
 
 
-def make_train_step(cfg: TemporalConfig, optimizer, logit_l2: float = 0.0):
-    """The shared optimizer step over this family's loss."""
-    return detector.make_train_step(cfg, optimizer, loss=loss_fn,
-                                    logit_l2=logit_l2)
+def make_train_step(cfg: TemporalConfig, optimizer, logit_l2: float = 0.0,
+                    sharded: bool = False, mesh=None):
+    """The shared optimizer step over this family's loss.  With
+    ``sharded``, data-parallel over ``mesh``'s ``data`` dim (a (data,
+    model) mesh with ``model`` of size 1: ``avd_tpu`` shards only the
+    batch of this family, ``avd_tpu/models/temporal.py:393-398``); every
+    rank holds the whole tree (``param_specs`` replicates every leaf)."""
+    return detector.make_train_step(
+        cfg, optimizer, loss=loss_fn, logit_l2=logit_l2, sharded=sharded,
+        mesh=mesh, specs=param_specs(cfg) if sharded else None)
+
+
+def layout(mesh, cfg: TemporalConfig, fsdp: bool = False):
+    """Every leaf whole on every rank (``param_specs``)."""
+    if fsdp:
+        raise ValueError("--fsdp rides the dp/tp step (vit/cnn)")
+    return zero.Layout(mesh, param_specs(cfg))
 
 
 make_optimizer = detector.make_optimizer

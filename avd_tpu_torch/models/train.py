@@ -21,8 +21,22 @@ drawn from the per-step RNG ``(seed, 1_000_003 + step)``, so a resumed run
 replays the batches of an uninterrupted one.
 
 Everything runs on CUDA unless ``device="cpu"`` (``--device cpu``) is
-given.  Pipeline parallelism, ZeRO-1 and FSDP (``--pp``, ``--pp-tp``,
-``--zero1``, ``--fsdp``) belong to the parallelism slice and raise.
+given.
+
+Over a rank group (``parallel/distributed.initialize``, which ``main``
+calls: one process a rank, as ``torchrun`` starts them) the trainer takes
+the sharded path, as ``avd_tpu``'s does when more than one device is
+visible (``avd_tpu/models/train.py:573-651``): the dp × tp step over a
+(data, model) mesh (the temporal family data-parallel over (world, 1)),
+``--zero1`` or ``--fsdp`` on it (``parallel/zero.py``; ViT and CNN), or
+``--pp S [--pp-tp M]``, the GPipe step over (data, stage[, model]).  Every
+rank draws the same global batch from the same pool with the per-step RNG
+and keeps its ``data`` slice, so a group sees the batches one device
+would; the pool stays on the host (the device-resident pool is
+single-device only, as in ``avd_tpu``).  A save gathers the parameters,
+the optimizer state and the EMA to whole trees, rank 0 writes them and the
+others wait at a barrier: what a group saves resumes on one device or on
+a group, and the reverse.
 """
 
 from __future__ import annotations
@@ -39,6 +53,10 @@ from avd_tpu_torch import device as device_mod
 from avd_tpu_torch import models
 from avd_tpu_torch.models import convert, optim
 from avd_tpu_torch.models.detector import _map_tree
+from avd_tpu_torch.parallel import collectives as col
+from avd_tpu_torch.parallel import distributed
+from avd_tpu_torch.parallel import mesh as mesh_mod
+from avd_tpu_torch.parallel import zero
 
 
 def _smooth(img: np.ndarray, sigma: float) -> np.ndarray:
@@ -466,15 +484,6 @@ def _dir_batches(root: str, rng, batch: int, size: int):
         yield frames, labels
 
 
-def _not_here(flag: str):
-    return NotImplementedError(
-        f"{flag} is multi-device training, which the port does not have "
-        "yet: avd_tpu_torch/parallel/ serves inference over a rank group "
-        "(sharded, expert-, pipeline- and context-parallel forwards); "
-        "training over one (dp x tp, GPipe's backward, ZeRO-1, FSDP) is "
-        "the next slice (ROADMAP.md, the parallelism queue)")
-
-
 def _config(arch, image_size, width, depth, heads, experts, remat):
     """(family module, config) of a run, as ``avd_tpu`` builds them: the
     CNN's ``small`` preset at the image size, the temporal ``small`` at the
@@ -530,13 +539,13 @@ def train(steps: int = 100, batch: int = 16, lr: float = 3e-4,
           schedule_horizon: int = 0,
           grad_clip: float = 0.0, accum: int = 1, ema: float = 0.0,
           device=None):
-    """Train one detector family on one device → (f32 parameter tree on
-    the device, per-step losses)."""
+    """Train one detector family → (f32 parameter tree on the device, the
+    whole tree on every rank of a group; per-step losses)."""
     dev = device_mod.resolve(device)
-    for flag, on in (("--pp", pp_stages > 1), ("--pp-tp", pp_tp > 1),
-                     ("--zero1", zero1), ("--fsdp", fsdp)):
-        if on:
-            raise _not_here(flag)
+    n_dev = distributed.world_size()
+    if n_dev > 1:
+        dev = distributed.rank_device()
+    rank0 = distributed.rank() == 0
     if resume and init_from:
         raise ValueError("--resume and --init-from are mutually exclusive")
     if resume and not out:
@@ -558,33 +567,51 @@ def train(steps: int = 100, batch: int = 16, lr: float = 3e-4,
         if not os.path.isdir(out) or not os.path.isfile(state_path or ""):
             raise ValueError(f"--resume: no checkpoint+train state at "
                              f"{out}[.train]")
-        saved = torch.load(state_path, map_location=dev, weights_only=True)
+        saved = torch.load(state_path, map_location="cpu", weights_only=True)
         params = saved["params"]
-    params = _map_tree(lambda _, x: x.detach().to(dev, torch.float32)
-                          .clone(), params)
-    leaves = optim.leaves_of(params)
+    params = _map_tree(lambda _, x: x.detach().to(torch.float32).clone(),
+                       params)
     # with accumulation the optimizer steps every `accum` calls: the
     # cosine horizon is in optimizer steps; --schedule-horizon pins it to
     # a whole curriculum's steps across --resume phases
     optimizer = detector.make_optimizer(
         lr, steps=max(1, (schedule_horizon or steps) // max(1, accum)),
         warmup=warmup, schedule=schedule, grad_clip=grad_clip, accum=accum)
-    opt_state = optimizer.init(leaves)
-    step_fn = detector.make_train_step(cfg, optimizer, logit_l2=logit_l2)
+    step_fn, lay = _make_step(detector, arch, cfg, optimizer, n_dev,
+                              pp_stages, pp_tp, zero1, fsdp, logit_l2)
+    sharded = lay is not None
+    full_tree = params
+    if sharded:
+        params = lay.shard(params)
+    params = _map_tree(lambda _, x: x.to(dev), params)
+    leaves = optim.leaves_of(params)
+    opt_state = step_fn.dp.init(leaves) if sharded \
+        else optimizer.init(leaves)
 
     start_step = 0
     resume_ema = None
     if saved is not None:
         opt_state = saved["opt_state"]
+        if sharded:
+            opt_state = zero.load_opt_state(opt_state, step_fn.dp, lay,
+                                            full_tree, leaves)
+        else:
+            # the moment lists (tuples, as torch's foreach ops return
+            # them) onto the device; the counters stay numbers
+            opt_state = {k: [x.to(dev) for x in v]
+                         if isinstance(v, (list, tuple)) else v
+                         for k, v in opt_state.items()}
         start_step = int(saved["step"])
         resume_ema = saved.get("ema")
-        if ema > 0 and resume_ema is None:
+        if ema > 0 and resume_ema is None and rank0:
             print("warning: saved train state has no EMA stream — "
                   "re-seeding the EMA from the restored params", flush=True)
-        if ema <= 0 and resume_ema is not None:
+        if ema <= 0 and resume_ema is not None and rank0:
             print("note: saved EMA stream preserved (frozen) — pass --ema "
                   "to keep updating it", flush=True)
-        print(f"resumed at step {start_step} from {state_path}", flush=True)
+        if rank0:
+            print(f"resumed at step {start_step} from {state_path}",
+                  flush=True)
 
     rng = np.random.default_rng(seed)
     batches = (_dir_batches(data, rng, batch, image_size) if data else None)
@@ -620,54 +647,67 @@ def train(steps: int = 100, batch: int = 16, lr: float = 3e-4,
         raise ValueError("--aug-codec requires the sample-pool path "
                          "(--cache-samples > 0, no --data)")
 
-    # the pool lives on the device; each step gathers its batch there
+    # one device: the pool lives on it and each step gathers its batch
+    # there; a group's ranks slice the host batch (as avd_tpu)
     dev_pool = None
-    if pool is not None:
+    if pool is not None and not sharded:
         dev_pool = (torch.from_numpy(pool[0]).to(dev),
                     torch.from_numpy(pool[1]).to(dev))
-        pool_n = pool[0].shape[0]
         print(f"pool resident on {dev} "
-              f"({pool[0].nbytes / 1e6:.0f} MB, {pool_n} samples)",
+              f"({pool[0].nbytes / 1e6:.0f} MB, {pool[0].shape[0]} "
+              "samples)",
               flush=True)
 
     ema_params = None
     if ema > 0:
         if not 0 < ema < 1:
             raise ValueError(f"--ema decay must be in (0, 1), got {ema}")
-        src = resume_ema if resume_ema is not None else params
+        if resume_ema is not None:
+            src = _map_tree(lambda _, x: x.float(), resume_ema)
+            src = lay.shard(src) if sharded else src
+        else:
+            src = params
         ema_params = _map_tree(
             lambda _, x: x.detach().to(dev, torch.float32).clone(), src)
         ema_leaves = optim.leaves_of(ema_params)
 
+    def whole(tree):
+        """A tree of this rank's layout → the whole tree (collective)."""
+        return lay.gather(tree) if sharded else \
+            _map_tree(lambda _, x: x.detach(), tree)
+
     def _save_state(at_step: int) -> None:
         if not out:
             return
-        convert.save_checkpoint(out, params, cfg)
-        state = {"step": at_step, "opt_state": opt_state,
-                 "params": _map_tree(lambda _, x: x.detach(), params)}
+        state = {"step": at_step, "params": whole(params),
+                 "opt_state": zero.gather_opt_state(
+                     opt_state, step_fn.dp, lay, leaves) if sharded
+                 else opt_state}
         if ema_params is not None:
-            state["ema"] = ema_params
-            convert.save_checkpoint(out + ".ema", ema_params, cfg)
+            state["ema"] = whole(ema_params)
         elif resume_ema is not None:
             # a resumed run that carried an EMA stream, --ema off this
             # time: keep the stream (frozen)
             state["ema"] = resume_ema
-        torch.save(state, state_path)
-        with open(os.path.join(out, "train_meta.json"), "w") as f:
-            json.dump({"arch": arch, "families": list(families),
-                       "steps": at_step, "batch": batch, "lr": lr,
-                       "image_size": image_size, "width": width,
-                       "depth": depth, "heads": heads,
-                       "experts": experts, "seq_len": seq_len,
-                       "seed": seed,
-                       "aug_codec": aug_codec, "logit_l2": logit_l2,
-                       "aug_crfs": list(aug_crfs),
-                       "warmup": warmup, "schedule": schedule,
-                       "schedule_horizon": schedule_horizon,
-                       "grad_clip": grad_clip, "accum": accum,
-                       "ema": ema, "zero1": zero1, "fsdp": fsdp,
-                       "init_from": init_from, "remat": remat,
-                       "device": dev.type}, f)
+        if rank0:
+            convert.save_checkpoint(out, state["params"], cfg)
+            if ema_params is not None:
+                convert.save_checkpoint(out + ".ema", state["ema"], cfg)
+            torch.save(state, state_path)
+            meta = dict(
+                arch=arch, families=list(families), steps=at_step,
+                batch=batch, lr=lr, image_size=image_size, width=width,
+                depth=depth, heads=heads, experts=experts, seq_len=seq_len,
+                seed=seed, aug_codec=aug_codec, logit_l2=logit_l2,
+                aug_crfs=list(aug_crfs), warmup=warmup, schedule=schedule,
+                schedule_horizon=schedule_horizon, grad_clip=grad_clip,
+                accum=accum, ema=ema, zero1=zero1, fsdp=fsdp, pp=pp_stages,
+                pp_tp=pp_tp, world=n_dev, init_from=init_from, remat=remat,
+                device=dev.type)
+            with open(os.path.join(out, "train_meta.json"), "w") as f:
+                json.dump(meta, f)
+        if sharded:
+            col.barrier(dev)
 
     losses = []
     t0 = time.time()
@@ -676,27 +716,33 @@ def train(steps: int = 100, batch: int = 16, lr: float = 3e-4,
         # at step k replays the batches an uninterrupted run sees
         step_rng = np.random.default_rng((seed, 1_000_003 + step))
         if dev_pool is not None:
-            idx = torch.from_numpy(step_rng.integers(0, pool_n, batch)).to(
-                dev)
+            idx = torch.from_numpy(step_rng.integers(
+                0, pool[0].shape[0], batch)).to(dev)
             fb = dev_pool[0].index_select(0, idx)
             lb = dev_pool[1].index_select(0, idx)
         else:
             if batches is not None:
                 frames, labels = next(batches)
+            elif pool is not None:
+                idx = step_rng.integers(0, pool[0].shape[0], batch)
+                frames, labels = pool[0][idx], pool[1][idx]
             elif arch == "temporal":
                 frames, labels = detector.synthetic_sequences(
                     rng, batch, seq_len, image_size, families)
             else:
                 frames, labels = synthetic_batch(rng, batch, image_size,
                                                  families)
-            fb = torch.from_numpy(frames).to(dev)
-            lb = torch.from_numpy(labels).to(dev)
+            # a group's step keeps its data slice and moves that alone
+            fb = torch.from_numpy(frames)
+            lb = torch.from_numpy(labels)
+            if not sharded:
+                fb, lb = fb.to(dev), lb.to(dev)
         params, opt_state, loss = step_fn(params, opt_state, fb, lb)
         if ema_params is not None and (step + 1) % accum == 0:
             # decayed once per applied update, not once per mini-step
             optim.ema_update(ema_leaves, leaves, ema)
         losses.append(float(loss))
-        if log_every and step % log_every == 0:
+        if rank0 and log_every and step % log_every == 0:
             rate = (step - start_step + 1) * batch / (time.time() - t0)
             print(f"step {step:5d}  loss {losses[-1]:.4f}  "
                   f"{rate:.1f} frames/s", flush=True)
@@ -704,7 +750,8 @@ def train(steps: int = 100, batch: int = 16, lr: float = 3e-4,
                 and step + 1 < steps:
             _save_state(step + 1)
 
-    params = _map_tree(lambda _, x: x.detach(), params)
+    full = whole(params)
+    full_ema = whole(ema_params) if ema_params is not None else None
 
     def _eval(p):
         if arch == "temporal":
@@ -712,18 +759,76 @@ def train(steps: int = 100, batch: int = 16, lr: float = 3e-4,
                                       device=dev)
         return evaluate(p, cfg, fam=detector, families=families, device=dev)
 
-    acc, auc = _eval(params)
-    print(f"held-out synthetic eval: accuracy {acc:.3f}  auc {auc:.3f}",
-          flush=True)
-    if ema_params is not None:
-        eacc, eauc = _eval(ema_params)
-        print(f"EMA({ema}) eval: accuracy {eacc:.3f}  auc {eauc:.3f} "
-              f"(weights at <out>.ema)", flush=True)
+    if rank0:
+        acc, auc = _eval(full)
+        print(f"held-out synthetic eval: accuracy {acc:.3f}  auc {auc:.3f}",
+              flush=True)
+        if full_ema is not None:
+            eacc, eauc = _eval(full_ema)
+            print(f"EMA({ema}) eval: accuracy {eacc:.3f}  auc {eauc:.3f} "
+                  f"(weights at <out>.ema)", flush=True)
     if out:
         _save_state(steps)
-        print(f"checkpoint written to {out} (+ {state_path} for --resume)",
-              flush=True)
-    return params, losses
+        if rank0:
+            print(f"checkpoint written to {out} (+ {state_path} for "
+                  "--resume)", flush=True)
+    return full, losses
+
+
+def _make_step(detector, arch, cfg, optimizer, n_dev, pp_stages, pp_tp,
+               zero1, fsdp, logit_l2):
+    """(train step, the rank's ``zero.Layout`` or None on one device), with
+    ``avd_tpu``'s checks and messages (``avd_tpu/models/train.py:573-651``)
+    for the flags of training over several devices."""
+    if pp_tp > 1 and pp_stages <= 1:
+        raise ValueError("--pp-tp requires --pp (the 'model' axis rides "
+                         "the pipeline mesh)")
+    if pp_stages > 1:
+        if arch != "vit":
+            raise ValueError("--pp requires the ViT family")
+        tp = max(1, pp_tp)
+        if n_dev % (pp_stages * tp) or cfg.depth % pp_stages:
+            raise ValueError(f"{n_dev} devices / depth {cfg.depth} not "
+                             f"divisible by {pp_stages} stages × {tp} tp")
+        if tp > 1:
+            mesh = mesh_mod.make_mesh(
+                n_dev, axes=("data", "stage", "model"),
+                shape=(n_dev // (pp_stages * tp), pp_stages, tp))
+        else:
+            mesh = mesh_mod.make_mesh(n_dev, axes=("data", "stage"),
+                                      shape=(n_dev // pp_stages, pp_stages))
+        if logit_l2:
+            raise ValueError("--logit-l2 is not plumbed through the "
+                             "pipelined loss; use the dp/tp path")
+        if zero1 or fsdp:
+            raise ValueError("--zero1/--fsdp ride the dp/tp step; "
+                             "the GPipe path already shards the layer "
+                             "stack (and its optimizer state) over "
+                             "'stage'")
+        step = detector.make_pp_train_step(cfg, optimizer, mesh, tp=tp > 1)
+        return step, step.layout
+    if fsdp:
+        if n_dev <= 1:
+            raise ValueError("--fsdp needs >1 device")
+        if arch not in ("vit", "cnn"):
+            raise ValueError("--fsdp rides the dp/tp step (vit/cnn)")
+    if zero1:
+        if n_dev <= 1:
+            raise ValueError("--zero1 needs >1 device (a data axis to "
+                             "shard the optimizer state over)")
+        if arch not in ("vit", "cnn"):
+            raise ValueError("--zero1 rides the dp/tp step (vit/cnn)")
+    if n_dev <= 1:
+        return detector.make_train_step(cfg, optimizer,
+                                        logit_l2=logit_l2), None
+    # the temporal family trains data-parallel: every rank on data
+    shape = (n_dev, 1) if arch == "temporal" else None
+    mesh = mesh_mod.make_mesh(n_dev, axes=("data", "model"), shape=shape)
+    mode = "fsdp" if fsdp else "zero1" if zero1 else None
+    kw = {"zero_mode": mode} if mode else {}
+    step = detector.make_train_step(cfg, optimizer, logit_l2=logit_l2,
+                                    sharded=True, mesh=mesh, **kw)
+    return step, detector.layout(mesh, cfg, fsdp=fsdp)
 
 
 def main(argv=None) -> int:
@@ -746,10 +851,11 @@ def main(argv=None) -> int:
     ap.add_argument("--experts", type=int, default=0,
                     help="ViT only: Switch-MoE expert count (0 = dense)")
     ap.add_argument("--pp", type=int, default=0, dest="pp_stages",
-                    help="pipeline-parallel stages (not in the port yet)")
+                    help="pipeline-parallel stages over a rank group "
+                         "(GPipe; ViT)")
     ap.add_argument("--pp-tp", type=int, default=0, dest="pp_tp",
-                    help="with --pp: tensor-parallel width (not in the "
-                         "port yet)")
+                    help="with --pp: tensor-parallel width inside each "
+                         "stage")
     ap.add_argument("--remat", action="store_true",
                     help="recompute blocks in the backward pass "
                          "(activation memory O(1) in depth; ViT only)")
@@ -789,9 +895,11 @@ def main(argv=None) -> int:
                     help="parameter EMA with this decay, saved to "
                          "<out>.ema")
     ap.add_argument("--fsdp", action="store_true",
-                    help="shard the parameters (not in the port yet)")
+                    help="over a rank group: shard the parameters over "
+                         "the data axis (ZeRO-3; vit/cnn)")
     ap.add_argument("--zero1", action="store_true",
-                    help="shard the optimizer state (not in the port yet)")
+                    help="over a rank group: shard the optimizer state "
+                         "over the data axis (vit/cnn)")
     ap.add_argument("--resume", action="store_true",
                     help="continue the run saved at --out (state from "
                          "<out>.train)")
@@ -805,6 +913,12 @@ def main(argv=None) -> int:
                          f"(available: {','.join(sorted(GENERATOR_FAMILIES))}"
                          "; 'texture' is the held-out family)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--dist-backend", default=None, dest="dist_backend",
+                    choices=("nccl", "gloo"),
+                    help="a rank group's transport (default nccl on CUDA, "
+                         "gloo on the CPU; gloo lets ranks share one card, "
+                         "which NCCL refuses); the group comes from "
+                         "torchrun's RANK/WORLD_SIZE/MASTER_ADDR")
     args = ap.parse_args(argv)
     if args.arch == "cnn":
         ignored = [f for f, d in (("--width", 256), ("--depth", 4),
@@ -817,26 +931,32 @@ def main(argv=None) -> int:
     if args.arch == "temporal" and (args.experts or args.remat
                                     or args.pp_stages):
         ap.error("--experts/--remat/--pp only apply to --arch vit")
-    _, losses = train(steps=args.steps, batch=args.batch, lr=args.lr,
-                      out=args.out, data=args.data, seed=args.seed,
-                      image_size=args.image_size, width=args.width,
-                      depth=args.depth, heads=args.heads, arch=args.arch,
-                      experts=args.experts, pp_stages=args.pp_stages,
-                      pp_tp=args.pp_tp, remat=args.remat,
-                      seq_len=args.seq_len, init_from=args.init_from,
-                      cache_samples=args.cache_samples,
-                      families=tuple(args.families.split(",")),
-                      aug_codec=args.aug_codec, logit_l2=args.logit_l2,
-                      aug_crfs=tuple(int(c) for c in
-                                     args.aug_crfs.split(",")),
-                      resume=args.resume, save_every=args.save_every,
-                      zero1=args.zero1, fsdp=args.fsdp,
-                      warmup=args.warmup, schedule=args.schedule,
-                      schedule_horizon=args.schedule_horizon,
-                      grad_clip=args.grad_clip, accum=args.accum,
-                      ema=args.ema,
-                      device=args.device)
-    if losses:
+    joined = distributed.initialize(args.device, args.dist_backend)
+    rank = distributed.rank()
+    try:
+        _, losses = train(
+            steps=args.steps, batch=args.batch, lr=args.lr,
+            out=args.out, data=args.data, seed=args.seed,
+            image_size=args.image_size, width=args.width,
+            depth=args.depth, heads=args.heads, arch=args.arch,
+            experts=args.experts, pp_stages=args.pp_stages,
+            pp_tp=args.pp_tp, remat=args.remat,
+            seq_len=args.seq_len, init_from=args.init_from,
+            cache_samples=args.cache_samples,
+            families=tuple(args.families.split(",")),
+            aug_codec=args.aug_codec, logit_l2=args.logit_l2,
+            aug_crfs=tuple(int(c) for c in args.aug_crfs.split(",")),
+            resume=args.resume, save_every=args.save_every,
+            zero1=args.zero1, fsdp=args.fsdp,
+            warmup=args.warmup, schedule=args.schedule,
+            schedule_horizon=args.schedule_horizon,
+            grad_clip=args.grad_clip, accum=args.accum,
+            ema=args.ema,
+            device=args.device)
+    finally:
+        if joined:
+            distributed.shutdown()
+    if losses and rank == 0:
         print(f"final loss {losses[-1]:.4f}")
     return 0
 

@@ -3,7 +3,10 @@
 ``src/avd_native.cc`` (the host runtime) compiles, at first use, into
 ``build/avd_tpu_torch_host/libavd_native-<digest>.so`` under the checkout;
 ``src/avd_decode.cc`` (the libav* decoder, ``decode.py``) beside it with
-``DECODE_FLAGS`` and ``DECODE_LIBS``.
+``DECODE_FLAGS`` and ``DECODE_LIBS``.  Where the checkout's ``build/``
+cannot be written (an installed package in a read-only site-packages),
+builds go to a per-user cache instead (``choose_build_dir``:
+``$AVD_NATIVE_CACHE/host``, default ``~/.cache/avd_tpu_torch/host``).
 The digest covers the source, the flags and the host CPU's feature flags
 (``-march=native`` makes a library for the machine that built it, so a
 build directory copied to another machine rebuilds instead of loading
@@ -40,6 +43,37 @@ DECODE_LIBS = ("-lavformat", "-lavcodec", "-lavutil", "-lswscale",
 BUILD_INFO: dict = {}  # what the last compile in this process took and said
 
 
+def _writable(path: str) -> bool:
+    """``path``, or its nearest existing ancestor, is a directory this
+    process may write into."""
+    while not os.path.exists(path):
+        parent = os.path.dirname(path)
+        if parent == path:
+            return False
+        path = parent
+    return os.path.isdir(path) and os.access(path, os.W_OK)
+
+
+def choose_build_dir(preferred: str, sub: str, writable=None) -> str:
+    """``preferred`` (the checkout's build directory) when it can be
+    written, else ``sub`` under the per-user cache: ``$AVD_NATIVE_CACHE``,
+    default ``~/.cache/avd_tpu_torch``.  Library names carry a digest of
+    the sources' content and the flags, never an mtime: a wheel's files
+    keep the build machine's archive times, so a cache keyed by mtime
+    would go on loading an older library after an upgrade."""
+    if (writable or _writable)(preferred):
+        return preferred
+    root = os.getenv("AVD_NATIVE_CACHE") or os.path.join(
+        os.path.expanduser("~"), ".cache", "avd_tpu_torch")
+    return os.path.join(root, sub)
+
+
+def default_build_dir() -> str:
+    """Where this process builds the host libraries (``BUILD_DIR`` or the
+    per-user cache)."""
+    return choose_build_dir(BUILD_DIR, "host")
+
+
 def gxx() -> str:
     found = shutil.which("g++")
     if found is None:
@@ -61,11 +95,13 @@ def _cpu_flags() -> bytes:
     return b""
 
 
-def lib_path(src: str = SRC, build_dir: str = BUILD_DIR, flags=None,
+def lib_path(src: str = SRC, build_dir: str | None = None, flags=None,
              libs=()) -> str:
     """Where the library of ``src`` built with ``flags`` (default
-    ``FLAGS``) and ``libs`` lives."""
+    ``FLAGS``) and ``libs`` lives (in ``build_dir``, default
+    ``default_build_dir()``)."""
     flags = FLAGS if flags is None else flags
+    build_dir = build_dir or default_build_dir()
     digest = hashlib.sha256(" ".join(flags + libs).encode() + b"\0"
                             + _cpu_flags())
     with open(src, "rb") as f:
@@ -74,10 +110,11 @@ def lib_path(src: str = SRC, build_dir: str = BUILD_DIR, flags=None,
     return os.path.join(build_dir, f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
 
-def build(src: str = SRC, build_dir: str = BUILD_DIR, flags=None,
+def build(src: str = SRC, build_dir: str | None = None, flags=None,
           libs=()) -> str:
     """The library built from ``src`` (compiled now unless it exists)."""
     flags = FLAGS if flags is None else flags
+    build_dir = build_dir or default_build_dir()
     out = lib_path(src, build_dir, flags, libs)
     if os.path.exists(out):
         return out

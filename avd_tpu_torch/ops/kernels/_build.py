@@ -2,12 +2,16 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/avd_tpu_torch_kernels/lib<name>-<digest>.so`` under the
-checkout, at first use; the digest covers the source, every header
+checkout, at first use (where that cannot be written, into the per-user
+cache ``$AVD_NATIVE_CACHE/kernels``, default
+``~/.cache/avd_tpu_torch/kernels``: ``build_dir``); the digest covers the
+source, every header
 ``csrc/*.cuh`` and the flags, so an edited source or header rebuilds and
 an unchanged one loads the cached library.  ``build_all`` starts one nvcc
 per source at once and waits for all; what nvcc printed (``-Xptxas -v``:
 registers, shared memory and spills of each kernel) stays in
-``BUILD_LOGS``.  Builds hold an exclusive lock on ``BUILD_DIR/.lock``, so
+``BUILD_LOGS``.  Builds hold an exclusive lock on ``.lock`` in the build
+directory, so
 processes that start together on a fresh tree (the serving workers) run
 each nvcc once: the others wait and load what it wrote.
 Nothing here runs at import time: the CPU tests import every module on a
@@ -27,6 +31,8 @@ import subprocess
 import threading
 import time
 
+from avd_tpu_torch.native import _build as host_build
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -44,6 +50,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_LOGS: dict = {}  # source name → nvcc's output of the build in this run
 _lock = threading.Lock()
 _libs: dict = {}
+
+
+def build_dir() -> str:
+    """``BUILD_DIR``, or the per-user cache where it cannot be written
+    (``native/_build.choose_build_dir``)."""
+    return host_build.choose_build_dir(BUILD_DIR, "kernels")
 
 
 def nvcc() -> str:
@@ -65,14 +77,15 @@ def lib_path(name: str) -> str:
     for path in [os.path.join(CSRC, f"{name}.cu")] + headers:
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    return os.path.join(build_dir(), f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 @contextlib.contextmanager
 def _build_lock():
     """Exclusive across processes; the kernel drops it if one dies."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+    where = build_dir()
+    os.makedirs(where, exist_ok=True)
+    with open(os.path.join(where, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
         yield
 

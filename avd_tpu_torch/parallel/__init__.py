@@ -11,9 +11,15 @@ controller and ``shard_map``/GSPMD:
 * ``distributed`` — joining the group, ``cp_mesh``;
 * ``halo`` — the video path's time axis with a one-frame halo;
 * ``attention`` — full, ring and Ulysses attention;
-* ``pipeline`` — the GPipe forward;
-* ``dryrun`` — the multi-rank programs, their launcher and checks.
+* ``pipeline`` — the GPipe schedule, forward and backward;
+* ``zero`` — the data-parallel update: replicated, ZeRO-1 and FSDP, the
+  global-norm clip over shards, a rank's layout of a tree;
+* ``dryrun`` — the multi-rank programs (inference and training), their
+  launcher and checks.
 
-Training over a group (ZeRO-1, FSDP, the dp × tp step, GPipe's backward,
-sharded checkpoints) is the next slice (``ROADMAP.md``).
+Every collective is differentiable (``collectives``: each backward is the
+VJP of ``shard_map``'s transpose rules, Megatron's exit and entry for
+``psum``), so the train steps over a group (``models/detector.py``'s
+``make_train_step(..., sharded=True)`` and ``make_pp_train_step``) take
+their gradients with autograd.
 """

@@ -25,7 +25,36 @@ never by catching an error (``transport``):
   only permutation of one member) and moves nothing.
 
 ``COUNTS`` counts the calls by (kind, transport), as the kernel wrappers
-count their launches; ``reset_counts`` and ``counts`` read them.
+count their launches; ``reset_counts`` and ``counts`` read them.  A
+backward pass's calls count under the kind they make.
+
+Gradients.  ``avd_tpu`` never writes a backward pass: ``shard_map``'s
+transpose rules derive them.  Here each collective is a
+``torch.autograd.Function`` whose backward is the VJP those rules give,
+over the same axis:
+
+==============================  =========================================
+forward                         backward
+==============================  =========================================
+``all_gather`` (tiled)          ``psum_scatter`` of the cotangent
+``psum_scatter`` (tiled)        ``all_gather`` of the cotangent
+``ppermute(perm)``              ``ppermute`` by the inverse permutation
+``all_to_all(split, concat)``   ``all_to_all(concat, split)``
+``psum`` (a region's exit)      identity
+``enter`` (a region's entry)    ``psum``
+==============================  =========================================
+
+``psum`` and ``enter`` are Megatron's pair.  A region's exit sums the
+members' partial results, and what follows it runs alike on every member,
+so the cotangent that reaches the sum is already the same on each: its
+backward passes it on unchanged (summing it would count it once per
+member).  A region's entry hands a value that every member holds alike to
+computations that differ by member (each its heads, its experts, its
+pipeline stage): the forward is the identity and the backward sums the
+members' cotangents, without which each member's gradient of the value
+would be only its own share.  Under ``torch.no_grad`` (or for a tensor
+that needs no gradient) every function runs its forward alone, and
+``enter`` moves nothing.
 """
 
 from __future__ import annotations
@@ -106,12 +135,8 @@ def _staged(fn, inputs: Sequence[torch.Tensor],
         y.copy_(h)
 
 
-def ppermute(x: torch.Tensor, mesh, axis: str,
-             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
-    """``jax.lax.ppermute``: the (source, destination) pairs of ``perm``
-    are coordinates along ``axis``; a rank that receives nothing gets
-    zeros.  One ``batch_isend_irecv`` posts this rank's send and receive
-    together."""
+def _ppermute(x: torch.Tensor, mesh, axis: str,
+              perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     n = axis_size(mesh, axis)
     me = axis_index(mesh, axis)
     x = x.contiguous()
@@ -140,9 +165,7 @@ def ppermute(x: torch.Tensor, mesh, axis: str,
     return out
 
 
-def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """``jax.lax.psum``: the sum over ``axis`` in ``x``'s dtype, on every
-    member (``all_reduce``)."""
+def _psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     group = _group(mesh, axis)
     out = x.contiguous().clone()
     if _how("psum", group, out) == "gloo-staged":
@@ -153,10 +176,8 @@ def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return out
 
 
-def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
-               ) -> torch.Tensor:
-    """``jax.lax.all_gather(..., tiled=True)``: the members' blocks
-    concatenated along ``dim`` in coordinate order."""
+def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
+                ) -> torch.Tensor:
     group = _group(mesh, axis)
     n = axis_size(mesh, axis)
     xm = x.movedim(dim, 0).contiguous()
@@ -170,10 +191,8 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
     return out.movedim(0, dim)
 
 
-def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
-                 ) -> torch.Tensor:
-    """``jax.lax.psum_scatter(..., tiled=True)``: the sum over ``axis``,
-    of which member i keeps block i along ``dim`` (reduce-scatter)."""
+def _psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
+                  ) -> torch.Tensor:
     group = _group(mesh, axis)
     n = axis_size(mesh, axis)
     xm = x.movedim(dim, 0).contiguous()
@@ -190,12 +209,8 @@ def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
     return out.movedim(0, dim)
 
 
-def all_to_all(x: torch.Tensor, mesh, axis: str, split_axis: int,
-               concat_axis: int) -> torch.Tensor:
-    """``jax.lax.all_to_all(..., tiled=True)``: ``x`` is cut into n blocks
-    along ``split_axis``; block j goes to member j, and the blocks a member
-    receives are concatenated along ``concat_axis`` in source order
-    (``all_to_all_single`` on contiguous chunks)."""
+def _all_to_all(x: torch.Tensor, mesh, axis: str, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
     group = _group(mesh, axis)
     n = axis_size(mesh, axis)
     if x.shape[split_axis] % n:
@@ -211,6 +226,123 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_axis: int,
     else:
         dist.all_to_all_single(out, xs, group=group)
     return torch.cat(list(out.unbind(0)), dim=concat_axis)
+
+
+# ---------------------------------------------------------------------------
+# the differentiable collectives
+# ---------------------------------------------------------------------------
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.args = (mesh, axis, [(d, s) for s, d in perm])
+        return _ppermute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g, *ctx.args), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, *ctx.args), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_scatter(g, *ctx.args), None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _psum_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = (mesh, axis, concat_axis, split_axis)
+        return _all_to_all(x, mesh, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None, None
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """``jax.lax.ppermute``: the (source, destination) pairs of ``perm``
+    are coordinates along ``axis``; a rank that receives nothing gets
+    zeros.  One ``batch_isend_irecv`` posts this rank's send and receive
+    together.  Backward: the cotangent goes back by the inverse pairs."""
+    return _PPermute.apply(x, mesh, axis, list(perm))
+
+
+def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``jax.lax.psum``: the sum over ``axis`` in ``x``'s dtype, on every
+    member (``all_reduce``).  A region's exit: the backward is the
+    identity (module docstring)."""
+    return _Psum.apply(x, mesh, axis)
+
+
+def enter(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """A region's entry over ``axis`` (Megatron's "copy to region"): the
+    identity forward, a ``psum`` of the cotangent backward."""
+    return _Enter.apply(x, mesh, axis)
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
+               ) -> torch.Tensor:
+    """``jax.lax.all_gather(..., tiled=True)``: the members' blocks
+    concatenated along ``dim`` in coordinate order.  Backward: the
+    cotangent reduce-scattered along ``dim``."""
+    return _AllGather.apply(x, mesh, axis, dim)
+
+
+def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
+                 ) -> torch.Tensor:
+    """``jax.lax.psum_scatter(..., tiled=True)``: the sum over ``axis``,
+    of which member i keeps block i along ``dim`` (reduce-scatter).
+    Backward: the cotangent all-gathered along ``dim``."""
+    return _PsumScatter.apply(x, mesh, axis, dim)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(..., tiled=True)``: ``x`` is cut into n blocks
+    along ``split_axis``; block j goes to member j, and the blocks a member
+    receives are concatenated along ``concat_axis`` in source order
+    (``all_to_all_single`` on contiguous chunks).  Backward: the
+    cotangent by ``all_to_all`` with the two axes swapped."""
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
 
 
 def barrier(device: torch.device) -> None:

@@ -71,6 +71,11 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def rank() -> int:
+    """This process's rank in the group (0 without one)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def rank_device() -> torch.device:
     """The device ``initialize`` bound this rank to (CUDA by default)."""
     return _RANK_DEVICE if _RANK_DEVICE is not None else \

@@ -17,7 +17,20 @@ each held to the single-device result at ``avd_tpu``'s tolerance:
 
 and ``scoring``: ``models/scoring``'s sharded branch through
 ``detector_timeline_resized``, which only a group of more than one rank
-takes.  The training programs (3, 8, 9) belong to the next slice.
+takes.  Then the training programs (``TRAIN_PROGRAMS``), each some steps
+of a train step from one init on one set of batches, held to the same
+steps on one device (the loss at every step within 2e-2, every leaf's
+first-step gradient and final value within 3e-2 in relative L2):
+
+3. ``dp_tp_train``: the dp × tp step (``detector.make_train_step(...,
+   sharded=True)``);
+8. ``zero1``: the same with ZeRO-1 (``parallel/zero.py``), its loss
+   against the replicated step's at rtol 1e-5 / atol 1e-6 and its moment
+   leaves sliced over ``data``;
+9. ``fsdp``: the same with the parameters sliced over ``data``;
+
+and ``pp_train`` (dp × pp) and ``pp_tp_train`` (dp × pp × tp): the GPipe
+step (``detector.make_pp_train_step``).
 
 ``launch(nproc, device, programs)`` spawns the ranks (one process each,
 ``torch.multiprocessing`` spawn, a ``FileStore`` rendezvous in a scratch
@@ -32,7 +45,9 @@ single-device result and ``check`` holds a rank's outputs to it.
 
 A program is a name above or a dict ``{"name", "kind", ...options}``
 (``mesh``: ``[axes, shape]``; ``model``, ``batch``, ``n_micro``, ``tp``,
-``impl``, ``seq``); a kind is one of ``KINDS`` or ``"module:function"``,
+``impl``, ``seq``; for ``train``: ``mode``, ``steps``, ``lr``,
+``logit_l2``, ``grad_clip``, ``accum``, ``replicated``); a kind is one
+of ``KINDS`` or ``"module:function"``,
 called as ``fn(ctx, opts)`` and returning a dict of arrays.  ``spec``
 names the models (family, config, weights directory or seed) and sizes;
 ``inputs`` holds the arrays (frames as uint8 BGR at each model's size,
@@ -40,6 +55,8 @@ the host-prep planes of the video path).
 
     python -m avd_tpu_torch.parallel.dryrun --nproc 4 --device cuda
     python -m avd_tpu_torch.parallel.dryrun --nproc 4 --device cpu --small
+    python -m avd_tpu_torch.parallel.dryrun --nproc 4 --device cpu --small
+        --programs dp_tp_train,zero1,fsdp,pp_train,pp_tp_train  (one line)
 
 This module imports the rest of the port inside functions: a spawned
 rank applies its environment before anything reads it.
@@ -64,9 +81,18 @@ import numpy as np
 
 PROGRAMS = ("cp", "vit_dm", "gpipe", "moe_ep", "dp_pp_tp", "temporal_ring",
             "temporal_ulysses", "scoring")
+TRAIN_PROGRAMS = ("dp_tp_train", "zero1", "fsdp", "pp_train", "pp_tp_train")
 LOGIT_ATOL = 2e-2          # bf16 logits (tests/test_parallel.py:84)
 CP_RTOL, CP_ATOL = 1e-5, 1e-6  # flow stats (tests/test_parallel.py:153-158)
 TIMELINE_ATOL = 1e-6
+# training programs (__graft_entry__.py:130-160, 241-304): the loss against
+# one device's step at each step, ZeRO-1's against the replicated step's
+# (rtol/atol), every leaf's first gradient and final value in relative L2,
+# the clip's global norm against that of the gathered first gradients
+LOSS_ATOL = 2e-2
+ZERO1_RTOL, ZERO1_ATOL = 1e-5, 1e-6
+LEAF_REL = 3e-2
+NORM_RTOL = 1e-5
 
 _WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "models", "weights")
@@ -85,6 +111,8 @@ def full_spec() -> Dict[str, Any]:
                      "weights": os.path.join(_WEIGHTS, "temporal_small")},
         "pp_batch": 32, "n_micro": 4, "temporal_t": 32,
         "scoring_env": {}, "scoring_size": 224,
+        # the shipped detector_full's fine-tune recipe (train_meta.json)
+        "train": {"batch": 64, "steps": 3, "lr": 1e-4, "logit_l2": 0.02},
     }
 
 
@@ -104,6 +132,14 @@ def small_spec() -> Dict[str, Any]:
                               "frame_depth": 1, "heads": 4}, "seed": 2},
         "pp_batch": 8, "n_micro": 4, "temporal_t": 8,
         "scoring_env": {"AVD_DETECTOR_PRESET": "small"}, "scoring_size": 64,
+        # the training programs fine-tune the shipped detector_small: from
+        # a seeded tree's zero biases Adam's sign-normalised steps on
+        # rounding-level gradients (the key bias, which the softmax
+        # ignores) differ between any two implementations
+        "trained": {"family": "vit", "preset": "small",
+                    "weights": os.path.join(_WEIGHTS, "detector_small")},
+        "train": {"batch": 8, "steps": 3, "lr": 1e-4, "logit_l2": 0.02,
+                  "model": "trained"},
     }
 
 
@@ -140,7 +176,8 @@ def make_inputs(spec: Dict[str, Any], frames_bgr: np.ndarray,
     s320, s32, tex = prepped if prepped is not None else \
         host_prep.host_prep(frames_bgr)
     out = {"s320": s320, "s32": s32, "tex": tex}
-    sizes = {model_size(spec[k]) for k in ("vit", "moe", "temporal")}
+    sizes = {model_size(spec[k]) for k in ("vit", "moe", "temporal",
+                                           "trained") if k in spec}
     for size in sorted(sizes | {spec["scoring_size"]}):
         out[f"bgr{size}"] = scoring.resize_frames(frames_bgr, size)
     return out
@@ -207,8 +244,17 @@ def resolve(program, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
             "temporal_ring": {"kind": "temporal", "impl": "ring"},
             "temporal_ulysses": {"kind": "temporal", "impl": "ulysses"},
             "scoring": {"kind": "scoring"},
+            "dp_tp_train": {"kind": "train", "mode": "replicated"},
+            "zero1": {"kind": "train", "mode": "zero1", "replicated": True},
+            "fsdp": {"kind": "train", "mode": "fsdp"},
+            "pp_train": {"kind": "train", "mode": "pp"},
+            "pp_tp_train": {"kind": "train", "mode": "pp", "tp": True},
         }[program])
     kind = opts["kind"]
+    if kind == "train":
+        opts.setdefault("model", spec["train"].get("model", "vit"))
+        if opts["mode"] == "pp":
+            kind = "gpipe"
     if "mesh" not in opts:
         from avd_tpu_torch.parallel import mesh as mesh_mod
         if kind in ("cp", "temporal", "cp_compute"):
@@ -217,7 +263,9 @@ def resolve(program, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
             e = model_config(spec["moe"]).n_experts
             m = _largest_divisor(world, e)
             opts["mesh"] = [["data", "model"], [world // m, m]]
-        elif kind in ("vit_sharded", "cnn_sharded", "scoring"):
+        elif kind == "train" and opts["model"] == "temporal":
+            opts["mesh"] = [["data", "model"], [world, 1]]
+        elif kind in ("vit_sharded", "cnn_sharded", "scoring", "train"):
             opts["mesh"] = [["data", "model"], list(mesh_mod.factor2(world))]
         elif kind == "gpipe" and opts.get("tp"):
             m = 2 if world % 2 == 0 else 1
@@ -330,6 +378,146 @@ def _temporal(ctx: Ctx, opts):
     return {"logits": logits.float().cpu().numpy()}
 
 
+def train_batches(inputs, spec, key: str, batch: int, steps: int):
+    """Each step's (frames, labels) from the model's frames: ``batch``
+    consecutive frames (wrapping) from ``step * batch``, labels alternating
+    by step; for the temporal family ``batch`` clips of
+    ``spec["temporal_t"]`` frames with per-frame labels."""
+    x = _frames_of(inputs, spec, key)
+    temporal = model_config(spec[key]).__class__.__name__.startswith("Temp")
+    per = spec["temporal_t"] if temporal else 1
+    out = []
+    for i in range(steps):
+        idx = (i * batch * per + np.arange(batch * per)) % x.shape[0]
+        f = x[idx]
+        y = ((np.arange(batch * per) // 3 + i) % 2).astype(np.int32)
+        if temporal:
+            f = f.reshape((batch, per) + f.shape[1:])
+            y = y.reshape(batch, per)
+        out.append((f, y))
+    return out
+
+
+def _flat_named(tree, prefix=""):
+    from avd_tpu_torch.models import convert
+    return {name: v for name, _, v in convert._flatten(tree, prefix)}
+
+
+def _train_opts(ctx_spec, opts):
+    t = dict(ctx_spec["train"])
+    t.update({k: opts[k] for k in ("batch", "steps", "lr", "logit_l2")
+              if k in opts})
+    t.pop("model", None)
+    return t
+
+
+def _run_steps(step, local, state, batches, dev, host: bool = True):
+    """The steps → (losses, per-step ms, state); ``host``: the batches
+    stay on the host (a sharded step moves its slice), else they go to
+    ``dev`` first (one device's step)."""
+    import torch
+    losses, ms = [], []
+    for f, y in batches:
+        _sync(dev)
+        t0 = time.perf_counter()
+        f, y = torch.from_numpy(f), torch.from_numpy(y)
+        if not host:
+            f, y = f.to(dev), y.to(dev)
+        local, state, loss = step(local, state, f, y)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, state
+
+
+def _train(ctx: Ctx, opts):
+    """A training program (module docstring) on this rank: the losses, the
+    first step's gradients and the final parameters (gathered to whole
+    trees), and in ``info`` the per-step ms, the peak device memory, and
+    what this rank holds sliced."""
+    import torch
+    from avd_tpu_torch.models import detector, optim
+    from avd_tpu_torch.parallel import collectives as col
+    from avd_tpu_torch.parallel import zero
+    family, cfg, params = ctx.model(opts["model"])
+    mesh = ctx.mesh(*opts["mesh"])
+    t = _train_opts(ctx.spec, opts)
+    dev = ctx.device
+    batches = train_batches(ctx.inputs, ctx.spec, opts["model"], t["batch"],
+                            t["steps"])
+    mode = opts["mode"]
+
+    def build(mode):
+        optimizer = family.make_optimizer(
+            t["lr"], grad_clip=opts.get("grad_clip", 0.0),
+            accum=opts.get("accum", 1))
+        if mode == "pp":
+            step = detector.make_pp_train_step(
+                cfg, optimizer, mesh, opts.get("n_micro",
+                                               ctx.spec["n_micro"]),
+                tp=opts.get("tp", False))
+            lay = step.layout
+        elif mode == "zero1":
+            lay = family.layout(mesh, cfg)
+            step = zero.zero1_train_step(family, cfg, optimizer, mesh,
+                                         t["logit_l2"])
+        else:
+            zkw = {"zero_mode": "fsdp"} if mode == "fsdp" else {}
+            lay = family.layout(mesh, cfg, fsdp=mode == "fsdp")
+            step = family.make_train_step(cfg, optimizer,
+                                          logit_l2=t["logit_l2"],
+                                          sharded=True, mesh=mesh, **zkw)
+        local = detector._map_tree(lambda _, v: v.to(dev), lay.shard(params))
+        leaves = optim.leaves_of(local)
+        return step, lay, local, leaves, step.dp.init(leaves)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    step, lay, local, leaves, state = build(mode)
+    col.reset_counts()
+    losses, ms, state = _run_steps(step, local, state, batches[:1], dev)
+    calls = dict(col.COUNTS)
+    grads = lay.gather(optim.unflatten(local, step.dp.full_grads(leaves)))
+    grad_norm = float(step.dp.global_norm(leaves))
+    col.reset_counts()
+    more, ms2, state = _run_steps(step, local, state, batches[1:], dev)
+    for k, v in calls.items():  # the steps' calls, not the gathers'
+        col.COUNTS[k] = col.COUNTS.get(k, 0) + v
+    step_calls = col.counts()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    out = {"loss": np.asarray(losses + more),
+           "grad_norm": np.asarray(grad_norm)}
+    out.update({f"p/{k}": v.float().cpu().numpy() for k, v in
+                _flat_named(lay.gather(local)).items()})
+    out.update({f"g/{k}": v.float().cpu().numpy() for k, v in
+                _flat_named(grads).items()})
+    info = {"step_ms": ms + ms2, "peak_bytes": peak, "mode": mode,
+            "step_collectives": step_calls,
+            # what this rank holds: its leaves' and moments' elements
+            # against the whole tree's, and the leaves cut over data
+            "param_numel": sum(p.numel() for p in leaves),
+            "moment_numel": sum(m.numel() for m in state["mu"]),
+            "tree_numel": sum(p.numel() for p in optim.leaves_of(params)),
+            "data_sliced_params": sum(
+                int(p.numel() < w.numel()) for p, w, s in zip(
+                    leaves, optim.leaves_of(lay.permute(params)),
+                    zero.spec_leaves(lay.specs)) if "data" in s),
+            "data_sliced_moments": sum(int(m.numel() < p.numel()) for m, p
+                                       in zip(state["mu"], leaves)),
+            "leaves": len(leaves)}
+    # program 8's and 9's shard checks (where the data axis can shard)
+    if mode == "zero1" and col.axis_size(mesh, "data") > 1:
+        out["sliced_moments"] = np.asarray(info["data_sliced_moments"])
+    if mode == "fsdp" and col.axis_size(mesh, "data") > 1:
+        out["sliced_params"] = np.asarray(info["data_sliced_params"])
+    if opts.get("replicated"):  # ZeRO-1's yardstick: the replicated step
+        step_r, _, local_r, _, state_r = build("replicated")
+        out["loss_replicated"] = np.asarray(
+            _run_steps(step_r, local_r, state_r, batches, dev)[0])
+    out["info"] = info
+    return out
+
+
 @contextlib.contextmanager
 def _env(env: Dict[str, str], reset):
     """``env`` set in ``os.environ`` around the block, ``reset()`` called
@@ -402,7 +590,7 @@ def probe_gloo(device: str = "cuda", timeout_s: float = 120.0
 
 
 KINDS = {"cp": _cp, "cp_compute": _cp_compute, "vit_sharded": _sharded,
-         "cnn_sharded": _sharded, "gpipe": _gpipe,
+         "cnn_sharded": _sharded, "gpipe": _gpipe, "train": _train,
          "temporal": _temporal, "scoring": _scoring,
          "probe_all_reduce": _probe_all_reduce, "probe_gloo": _probe_gloo}
 
@@ -536,7 +724,56 @@ def _reference_one(opts, inputs, spec, dev, frames_bgr, cast, logits):
                 .float().cpu().numpy()}
     if kind == "scoring":
         return _score(spec, inputs, dev)
+    if kind == "train":
+        return _train_reference(opts, inputs, spec, dev)
     raise ValueError(f"no single-device reference for kind {kind!r}")
+
+
+def _train_reference(opts, inputs, spec, dev):
+    """A training program's steps on one device (the pipelined loss is the
+    BCE alone, as ``make_pp_train_step``'s)."""
+    import torch
+    from avd_tpu_torch.models import detector, optim
+    family, cfg, params = model(spec[opts["model"]])
+    t = _train_opts(spec, opts)
+    l2 = 0.0 if opts["mode"] == "pp" else t["logit_l2"]
+    optimizer = family.make_optimizer(t["lr"],
+                                      grad_clip=opts.get("grad_clip", 0.0),
+                                      accum=opts.get("accum", 1))
+    step = family.make_train_step(cfg, optimizer, logit_l2=l2)
+    p = detector._map_tree(
+        lambda _, v: v.detach().to(dev, torch.float32).clone(), params)
+    leaves = optim.leaves_of(p)
+    state = optimizer.init(leaves)
+    batches = train_batches(inputs, spec, opts["model"], t["batch"],
+                            t["steps"])
+    f0, y0 = (torch.from_numpy(a).to(dev) for a in batches[0])
+    for x in leaves:
+        x.requires_grad_(True)
+    grads = torch.autograd.grad(family.loss_fn(p, f0, y0, cfg, logit_l2=l2),
+                                leaves, materialize_grads=True)
+    losses, ms, _ = _run_steps(step, p, state, batches, dev, host=False)
+    out = {"loss": np.asarray(losses), "step_ms": np.asarray(ms)}
+    out.update({f"p/{k}": v.detach().float().cpu().numpy()
+                for k, v in _flat_named(p).items()})
+    out.update({f"g/{k}": v.float().cpu().numpy() for k, v in
+                _flat_named(optim.unflatten(p, list(grads))).items()})
+    return out
+
+
+def leaf_rel_l2(got: Dict[str, np.ndarray], ref: Dict[str, np.ndarray],
+                prefix: str) -> Dict[str, float]:
+    """``|got - ref| / |ref|`` (L2) of every leaf named ``prefix/...``."""
+    out = {}
+    for k in ref:
+        if k.startswith(prefix + "/"):
+            a = np.asarray(got[k], np.float64)
+            b = np.asarray(ref[k], np.float64)
+            scale = float(np.linalg.norm(b))
+            err = float(np.linalg.norm(a - b))
+            out[k] = err / scale if scale > 0 else (0.0 if err == 0
+                                                     else float("inf"))
+    return out
 
 
 def _frames_of(inputs, spec, key, n=0) -> np.ndarray:
@@ -551,6 +788,8 @@ def check(name: str, got: Dict[str, np.ndarray],
     """Hold one program's outputs to its single-device result → the
     largest |Δ|; raises AssertionError naming the program."""
     try:
+        if "loss" in ref:
+            return _check_train(got, ref)
         if "flow_means" in ref:
             assert int(got["total"]) == int(ref["total"])
             assert int(got["dup"]) == int(ref["dup"]), (got["dup"],
@@ -573,6 +812,44 @@ def check(name: str, got: Dict[str, np.ndarray],
     return max(float(np.max(np.abs(np.asarray(got[k], np.float64)
                                    - np.asarray(ref[k], np.float64))))
                for k in keys)
+
+
+def _check_train(got, ref) -> float:
+    """A training program against one device → its largest per-leaf
+    relative L2 of the updated parameters.  The first step's gradients are
+    held leaf by leaf too (Adam's update hardly changes with the scale of
+    a gradient, so only they show a backward pass off by a factor), and
+    the clip's global norm (``DataParallel.global_norm``, summed over the
+    shards) against the norm of the same gradients gathered to whole
+    leaves, at ``NORM_RTOL``: a leaf counted once per member of an axis
+    that holds it alike, or a shard left out of the sum, moves it."""
+    np.testing.assert_allclose(got["loss"], ref["loss"], atol=LOSS_ATOL,
+                               rtol=0, err_msg="loss against one device")
+    if "loss_replicated" in got:
+        np.testing.assert_allclose(got["loss"], got["loss_replicated"],
+                                   rtol=ZERO1_RTOL, atol=ZERO1_ATOL,
+                                   err_msg="loss against the replicated "
+                                           "step")
+    if "sliced_moments" in got:
+        assert int(got["sliced_moments"]) >= 8, \
+            f"only {int(got['sliced_moments'])} moment leaves data-sharded"
+    if "sliced_params" in got:
+        assert int(got["sliced_params"]) > 0, \
+            "FSDP params not physically sharded"
+    grads = leaf_rel_l2(got, ref, "g")
+    worst = max(grads, key=grads.get)
+    assert grads[worst] <= LEAF_REL, \
+        f"first-step gradient {worst}: relative L2 {grads[worst]:.3g}"
+    if "grad_norm" in got:
+        gathered = np.sqrt(sum(np.sum(np.square(got[k], dtype=np.float64))
+                               for k in grads))
+        np.testing.assert_allclose(float(got["grad_norm"]), gathered,
+                                   rtol=NORM_RTOL, err_msg="the clip's norm "
+                                   "against the gathered gradients'")
+    rel = leaf_rel_l2(got, ref, "p")
+    worst = max(rel, key=rel.get)
+    assert rel[worst] <= LEAF_REL, f"{worst}: relative L2 {rel[worst]:.3g}"
+    return rel[worst]
 
 
 # ---------------------------------------------------------------------------
@@ -760,7 +1037,9 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"))
     ap.add_argument("--small", action="store_true",
                     help="narrow seeded models and a short clip (CPU)")
-    ap.add_argument("--programs", default=",".join(PROGRAMS))
+    ap.add_argument("--programs", default=",".join(PROGRAMS),
+                    help="comma-separated programs; the training ones: "
+                         + ",".join(TRAIN_PROGRAMS))
     ap.add_argument("--probe-gloo", action="store_true",
                     help="only report which collectives gloo takes on the "
                          "device's tensors without staging")

@@ -117,6 +117,19 @@ def shard_params(mesh, params: Any, specs: Any) -> Any:
         params, specs)
 
 
+def gather_params(mesh, tree: Any, specs: Any) -> Any:
+    """The inverse of ``shard_params``: every leaf all-gathered along each
+    dim its spec names, so every rank holds the whole tree (no gradient)."""
+    def gather(x, spec):
+        x = x.detach()
+        with torch.no_grad():
+            for d, axis in enumerate(spec):
+                if axis is not None:
+                    x = collectives.all_gather(x, mesh, axis, dim=d)
+        return x
+    return _tree_map(gather, tree, specs)
+
+
 def batch_slice(mesh, x, axis: str = "data"):
     """This rank's slice of a batch along ``axis`` (dim 0): the counterpart
     of ``batch_sharding``.  The batch must divide by the axis."""

@@ -123,7 +123,7 @@ Phases, in order; any failure exits non-zero before the result line:
 22. cross-request batching: one worker, ``GUNICORN_THREADS=4``,
     ``AVD_BATCH_WINDOW_MS=100``: 4 concurrent uploads of the 1080p mp4
     (``batch_fused_jobs`` >= 2, each envelope equal to the solo one), 4
-    sequential; then, with batching on and off, two rounds of 8 uploads
+    sequential; then, with batching on and off, one round of 8 uploads
     from 1 client and 16 from 4, every envelope held to the solo one:
     requests/s, p50 and max latency over the rounds
     (``chiprun_out/serving.json``);
@@ -191,7 +191,20 @@ Phases, in order; any failure exits non-zero before the result line:
     card over gloo, collectives staged through host memory
     (``dryrun.launch(4, "cuda")``): every rank against the single-device
     result, ms, collectives by kind and transport, kernel launches per
-    rank (``chiprun_out/parallel.json``).
+    rank (``chiprun_out/parallel.json``);
+33. training over a rank group at full width: the shipped
+    ``detector_full`` at batch 64 with its recipe (lr 1e-4, logit L2
+    0.02), 3 warm steps of the dp × tp step, ZeRO-1, FSDP, GPipe over
+    (data, stage) and over (data, stage, model) (``dryrun``'s
+    ``dp_tp_train``, ``zero1``, ``fsdp``, ``pp_train``, ``pp_tp_train``),
+    on one NCCL rank and on 4 gloo ranks sharing the card, each against
+    the single-device steps on the card (loss 2e-2, ZeRO-1 against its
+    replicated step rtol 1e-5, every leaf's first gradient and final value
+    3e-2 in relative L2, the clip's global norm over the shards against
+    the gathered gradients' rtol 1e-5, ZeRO-1's moments and FSDP's
+    parameters sliced): warm ms a step, peak memory a rank, collectives by
+    kind and transport, and no kernel launched on any rank
+    (``chiprun_out/train_parallel.json``).
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It needs the repository beside it
@@ -2080,7 +2093,7 @@ def phase_served(wav_path, card_name):
     return refs[MP4_1080P]
 
 
-SERVE_ROUNDS = 2             # timed rounds a batching mode
+SERVE_ROUNDS = 1             # timed rounds a batching mode
 SERVE_UPLOADS = {1: 8, 4: 16}  # uploads a round at each client count
 
 
@@ -3075,6 +3088,136 @@ def phase_parallel_ranks(spec, inputs, ref):
     return rows
 
 
+TRAIN_PAR_PROGRAMS = ("dp_tp_train", "zero1", "fsdp", "pp_train",
+                      "pp_tp_train")
+# the single-device step each program is held to: the dp/tp programs share
+# one (the same loss and optimizer), the pipelined ones another (BCE alone)
+TRAIN_PAR_REFERENCE = {"dp_tp_train": "dp_tp_train", "zero1": "dp_tp_train",
+                       "fsdp": "dp_tp_train", "pp_train": "pp_train",
+                       "pp_tp_train": "pp_train"}
+
+
+def _train_par_row(name, rep, ref):
+    """A training program's row: held to its single-device step
+    (``dryrun.check``), with warm ms per step, peak memory and the
+    collectives."""
+    from avd_tpu_torch.parallel import dryrun
+    try:
+        rel = dryrun.check(name, rep["outputs"], ref)
+    except AssertionError as e:
+        raise PhaseError(str(e)) from None
+    info = rep["info"]
+    out = rep["outputs"]
+    row = {"mesh": rep["mesh"], "step_ms": info["step_ms"],
+           "warm_step_ms": statistics.mean(info["step_ms"]),
+           "peak_gib": info["peak_bytes"] / 2**30,
+           "loss": out["loss"].tolist(),
+           "loss_abs_err": float(np.max(np.abs(out["loss"] - ref["loss"]))),
+           "max_leaf_rel_l2": rel,
+           "max_grad_rel_l2": max(dryrun.leaf_rel_l2(out, ref, "g").values()),
+           "grad_norm": float(out["grad_norm"]),
+           "collectives": rep["collectives"],
+           "step_collectives": info["step_collectives"],
+           "launches": rep["launches"],
+           **{k: info[k] for k in ("param_numel", "moment_numel",
+                                   "tree_numel", "data_sliced_params",
+                                   "data_sliced_moments")}}
+    if "loss_replicated" in out:
+        row["loss_vs_replicated_abs"] = float(np.max(np.abs(
+            out["loss"] - out["loss_replicated"])))
+    return row
+
+
+def _train_par_log(where, name, row):
+    log(f"{where} {name}: {row['warm_step_ms']:.2f} ms a step (steps "
+        + ", ".join(f"{t:.2f}" for t in row["step_ms"])
+        + f"), peak {row['peak_gib']:.3f} GiB, loss |Δ| "
+        f"{row['loss_abs_err']:.3g}, parameters' relative L2 <= "
+        f"{row['max_leaf_rel_l2']:.3g} (first gradients "
+        f"{row['max_grad_rel_l2']:.3g}, clip norm {row['grad_norm']:.6g}), "
+        f"collectives of the steps "
+        f"{row['step_collectives']} (of the program with its gathers "
+        f"{row['collectives']})")
+
+
+def phase_train_parallel(spec, inputs):
+    """Phase 33: rank-group training at full width: the shipped
+    ``detector_full`` at batch 64 with its recipe (lr 1e-4, logit L2
+    0.02), 3 steps of each of ``TRAIN_PAR_PROGRAMS`` (the second of two
+    runs: warm), on one NCCL rank in this process and on 4 gloo ranks
+    sharing the card, each against ``dryrun.reference``'s single-device
+    steps on the card (loss 2e-2, ZeRO-1 against its replicated step at
+    rtol 1e-5, every leaf's first gradient and final value 3e-2 in
+    relative L2, the clip's global norm against the gathered gradients'
+    rtol 1e-5); warm ms a step, peak memory a rank and collectives by
+    kind and transport (``chiprun_out/train_parallel.json``).  The slice
+    launches none of the hand-written kernels (training keeps the einsum
+    attention, as ``avd_tpu`` does): the launches of the in-process run
+    and of every rank are checked to be none."""
+    import torch
+    from avd_tpu_torch.parallel import dryrun
+    t0 = time.perf_counter()
+    single_ms = {}
+    refs = dryrun.reference(sorted(set(TRAIN_PAR_REFERENCE.values())),
+                            inputs, spec, DEV, times=single_ms, reps=2)
+    torch.cuda.synchronize()
+    log(f"rank-group training: single-device references in "
+        f"{time.perf_counter() - t0:.1f} s (3 steps and one gradient each, "
+        "warm: " + ", ".join(f"{k} {v:.1f} ms" for k, v in single_ms.items())
+        + ")")
+    rows = {"single_device_step_ms": {k: r["step_ms"].tolist()
+                                      for k, r in refs.items()}}
+    log("one device, ms a step (warm): " + "; ".join(
+        f"{k} " + ", ".join(f"{t:.2f}" for t in v)
+        for k, v in rows["single_device_step_ms"].items()))
+    _reset_counters()
+    t0 = time.perf_counter()
+    rep = dryrun.run_in_process(list(TRAIN_PAR_PROGRAMS), inputs, spec, DEV,
+                                "nccl", reps=2)
+    rows["world1_nccl"] = {}
+    for name in TRAIN_PAR_PROGRAMS:
+        r = rep["programs"][name]
+        row = _train_par_row(name, r, refs[TRAIN_PAR_REFERENCE[name]])
+        check(r["collectives"]["staged"] == 0, f"{name} staged on NCCL")
+        check(any(k.endswith("/nccl") for k in r["collectives"]),
+              f"{name}: no NCCL call at world 1")
+        rows["world1_nccl"][name] = row
+        _train_par_log("world 1 NCCL", name, row)
+    log(f"world 1 NCCL training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ranks = dryrun.launch(PAR_RANKS, DEV, TRAIN_PAR_PROGRAMS, inputs=inputs,
+                          spec=spec, reps=2, timeout_s=RANKS_TIMEOUT_S)
+    rows[f"ranks_{PAR_RANKS}_gloo"] = {}
+    for name in TRAIN_PAR_PROGRAMS:
+        per = []
+        for r in ranks:
+            rep_r = r["programs"][name]
+            row = _train_par_row(name, rep_r, refs[TRAIN_PAR_REFERENCE[name]])
+            check(rep_r["collectives"]["staged"] > 0,
+                  f"{name} on rank {r['rank']}: nothing staged over gloo")
+            check(not any(row["launches"].get(k) for k in _kernel_modules()),
+                  f"{name} on rank {r['rank']} launched kernels: "
+                  f"{row['launches']}")
+            per.append(row)
+            _train_par_log(f"{PAR_RANKS} ranks rank {r['rank']}", name, row)
+        rows[f"ranks_{PAR_RANKS}_gloo"][name] = per
+    ranks_rows = rows[f"ranks_{PAR_RANKS}_gloo"]
+    moments = [r["data_sliced_moments"] for r in ranks_rows["zero1"]]
+    check(min(moments) >= 8, f"ZeRO-1 moments not sliced: {moments}")
+    sliced = [r["data_sliced_params"] for r in ranks_rows["fsdp"]]
+    check(min(sliced) >= 8, f"FSDP parameters not sliced: {sliced}")
+    launches = _counters()
+    rows["kernel_launches_world1"] = launches
+    check(not any(launches[k] for k in _kernel_modules()),
+          f"rank-group training launched kernels: {launches}")
+    log(f"{PAR_RANKS} ranks over gloo, training: "
+        f"{time.perf_counter() - t0:.1f} s; peak GiB a rank (dp x tp / "
+        "ZeRO-1 / FSDP): " + " / ".join(
+            f"{max(r['peak_gib'] for r in ranks_rows[n]):.3f}"
+            for n in ("dp_tp_train", "zero1", "fsdp")))
+    return rows
+
+
 def kernel_entry(name, source, replaces, rows, max_err, launches):
     ms = ROUNDS * sum(r[1] for r in rows)
     plain = ROUNDS * sum(r[2] for r in rows)
@@ -3164,6 +3307,7 @@ def main():
         spec, par_inputs, par_ref, world1, w1_launches = \
             phase_parallel_world1(frames)
         par_rows = phase_parallel_ranks(spec, par_inputs, par_ref)
+        train_par_rows = phase_train_parallel(spec, par_inputs)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -3198,6 +3342,8 @@ def main():
         k: v for k, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
                              mha_rows[1][1:5])}
     for entry in kernels:
+        entry["rank_group_training_launches"] = \
+            train_par_rows["kernel_launches_world1"].get(entry["name"], 0)
         entry["streaming_launches"] = stream_launches.get(entry["name"], 0)
         entry["served_launches"] = served_launches.get(entry["name"], 0)
     # the parallel path: counts over the world-1 programs (phase 31) and
@@ -3241,6 +3387,8 @@ def main():
             f"{world1[k].get('ms', float('nan')):.2f} / " + ", ".join(
                 f"{r['ms']:.2f}" for r in par_rows[k]["ranks"])
             for k in world1))
+    with open(os.path.join("chiprun_out", "train_parallel.json"), "w") as f:
+        json.dump({"card": card, **train_par_rows}, f, indent=1)
     with open(os.path.join("chiprun_out", "training.json"), "w") as f:
         json.dump({"card": card, "training": train_rows,
                    "exported": export_rows, "bench": bench_rows}, f,

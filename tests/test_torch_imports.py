@@ -72,7 +72,7 @@ for n in ("avd_tpu_torch.models", "avd_tpu_torch.models.detector",
           "avd_tpu_torch.parallel.collectives",
           "avd_tpu_torch.parallel.mesh", "avd_tpu_torch.parallel.distributed",
           "avd_tpu_torch.parallel.halo", "avd_tpu_torch.parallel.pipeline",
-          "avd_tpu_torch.parallel.dryrun"):
+          "avd_tpu_torch.parallel.dryrun", "avd_tpu_torch.parallel.zero"):
     assert n in names, n
 """
 
@@ -273,6 +273,8 @@ _ENTRY_POINTS = {
     "distributed.initialize": lambda: distributed.initialize(
         world_size=2, rank=0, init_method="file:///nonexistent/store"),
     "dryrun.launch": lambda: dryrun.launch(2),
+    "load_checkpoint_sharded": lambda: detector.load_checkpoint_sharded(
+        "/nonexistent/ckpt", detector.make_config("small"), None),
     "dryrun.run_in_process": lambda: dryrun.run_in_process(
         ["cp"], {}, dryrun.small_spec()),
 }

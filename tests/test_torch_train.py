@@ -340,11 +340,21 @@ def test_init_from_an_orbax_directory_names_the_converter(tmp_path):
         train.train(steps=1, init_from=str(ck), **TINY)
 
 
-@pytest.mark.parametrize("flag", [{"pp_stages": 2}, {"pp_tp": 2},
-                                  {"zero1": True}, {"fsdp": True}])
-def test_multi_device_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("flag,message", [
+    ({"pp_stages": 2},
+     "1 devices / depth 1 not divisible by 2 stages × 1 tp"),
+    ({"pp_tp": 2}, "--pp-tp requires --pp (the 'model' axis rides the "
+                   "pipeline mesh)"),
+    ({"zero1": True}, "--zero1 needs >1 device (a data axis to shard the "
+                      "optimizer state over)"),
+    ({"fsdp": True}, "--fsdp needs >1 device")])
+def test_multi_device_flags_raise(flag, message):
+    """On one process the flags of training over several devices raise
+    ``avd_tpu``'s one-device ``ValueError``s
+    (``avd_tpu/models/train.py:576-651``)."""
+    with pytest.raises(ValueError) as e:
         train.train(steps=1, **TINY, **flag)
+    assert str(e.value) == message
 
 
 def test_train_on_a_media_folder():

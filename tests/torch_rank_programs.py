@@ -77,6 +77,55 @@ def collectives(ctx, opts):
     return out
 
 
+GRAD_KINDS = ("all_gather0", "all_gather1", "psum_scatter", "ppermute",
+              "ppermute_partial", "all_to_all", "psum", "enter")
+
+
+def _grad_case(kind, x, mesh, n):
+    return {
+        "all_gather0": lambda: col.all_gather(x, mesh, "a", dim=0),
+        "all_gather1": lambda: col.all_gather(x, mesh, "a", dim=1),
+        "psum_scatter": lambda: col.psum_scatter(x, mesh, "a", dim=0),
+        "ppermute": lambda: col.ppermute(
+            x, mesh, "a", [(i, (i + 1) % n) for i in range(n)]),
+        "ppermute_partial": lambda: col.ppermute(x, mesh, "a",
+                                                 [(0, 1 % n)]),
+        "all_to_all": lambda: col.all_to_all(x, mesh, "a", split_axis=0,
+                                             concat_axis=1),
+        "psum": lambda: col.psum(x, mesh, "a"),
+        "enter": lambda: col.enter(x, mesh, "a"),
+    }[kind]()
+
+
+def collective_grads(ctx, opts):
+    """Each collective's backward: this rank's input ``x_<dt>[rank]`` (the
+    entry op's: ``x_<dt>[0]``, a value every rank holds alike) through the
+    collective, this rank's share of a loss ``sum(w * y)`` with its seeded
+    weights ``w_<kind>_<dt>[rank]``, and the gradient of that share with
+    respect to the input; the calls each backward made, by kind."""
+    n, r = ctx.world, ctx.rank
+    mesh = ctx.mesh(["a"], [n])
+    out, calls = {}, {}
+    for dt in ("f32", "f64"):
+        for kind in GRAD_KINDS:
+            xs = ctx.inputs[f"x_{dt}"]
+            x = torch.from_numpy(xs[0 if kind == "enter" else r].copy())
+            x.requires_grad_(True)
+            y = _grad_case(kind, x, mesh, n)
+            w = torch.from_numpy(ctx.inputs[f"w_{kind}_{dt}"][r])
+            col.reset_counts()
+            (g,) = torch.autograd.grad((w * y).sum(), x)
+            calls[f"{kind}_{dt}"] = col.counts()
+            out[f"{kind}_{dt}"] = g.numpy()
+            out[f"{kind}_{dt}_y"] = y.detach().numpy()
+        with torch.no_grad():  # the forward alone: no graph, no backward
+            col.reset_counts()
+            col.enter(torch.from_numpy(ctx.inputs[f"x_{dt}"][r]), mesh, "a")
+            calls[f"enter_no_grad_{dt}"] = col.counts()
+    out["info"] = calls
+    return out
+
+
 def mesh_rules(ctx, opts):
     """Shapes ``make_mesh`` builds, ``cp_mesh``'s gating and the errors of
     a mesh that does not hold the group."""
@@ -187,3 +236,49 @@ def sleep_on_rank(ctx, opts):
     if ctx.rank == opts["rank"]:
         time.sleep(600)
     return {}
+
+
+def restore(ctx, opts):
+    """``load_checkpoint_sharded`` of ``opts["weights"]`` under each layout
+    (tensor-parallel, FSDP, the pipeline's stacked stages with and without
+    tp): every leaf this rank holds, by layout."""
+    from avd_tpu_torch.models import convert, detector
+    cfg = detector.make_config("small", **opts["over"])
+    layouts = {
+        "tp": detector.layout(ctx.mesh(["data", "model"], opts["dm"]), cfg),
+        "fsdp": detector.layout(ctx.mesh(["data", "model"], opts["dm"]),
+                                cfg, fsdp=True),
+        "pp": detector.pp_layout(ctx.mesh(["data", "stage"], opts["ds"]),
+                                 cfg),
+        "pp_tp": detector.pp_layout(
+            ctx.mesh(["data", "stage", "model"], opts["dsm"]), cfg, tp=True),
+    }
+    out = {}
+    for name, lay in layouts.items():
+        local = detector.load_checkpoint_sharded(opts["weights"], cfg, lay,
+                                                 ctx.device)
+        for key, _, v in convert._flatten(local):
+            out[f"{name}/{key}"] = v.numpy()
+        whole = lay.gather(local)
+        for key, _, v in convert._flatten(whole):
+            out[f"{name}_whole/{key}"] = v.numpy()
+    return out
+
+
+def trainer(ctx, opts):
+    """``train.train`` on this rank of the group with ``opts["kw"]`` (the
+    CPU), after copying ``opts["copy_from"]``'s save to ``kw["out"]`` when
+    given: its losses and the whole trained tree it returns."""
+    import shutil
+    from avd_tpu_torch.models import convert, train
+    if "copy_from" in opts:  # resume from a copy of an earlier save
+        if ctx.rank == 0:
+            out = opts["kw"]["out"]
+            shutil.copytree(opts["copy_from"], out)
+            shutil.copy(opts["copy_from"] + ".train", out + ".train")
+        col.barrier(ctx.device)
+    params, losses = train.train(device="cpu", **opts["kw"])
+    out = {"loss": np.asarray(losses)}
+    for key, _, v in convert._flatten(params):
+        out[f"p/{key}"] = v.numpy()
+    return out
