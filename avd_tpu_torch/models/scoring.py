@@ -51,7 +51,11 @@ probability.  ``AVD_ATTN_FUSED=1`` is turned off there with
 ``avd_tpu``'s warning (the sharded block keeps the einsum attention);
 ``AVD_DETECTOR_QUANT=1`` serves on each rank alone, with its warning;
 the temporal family serves on each rank alone, as in ``avd_tpu``.  Every
-rank must score the same frames.
+rank must score the same frames.  A served group (``serve/group.py``)
+scores sharded at any size, a group of one included; its leader enters
+the call on every rank with the resized uint8 frames
+(``detector_timeline_resized``), and its single-rank modes score on the
+leader alone.
 
 Every function that touches the model takes ``device=`` and defaults to
 CUDA through ``device.resolve``: without a GPU it raises unless the caller
@@ -210,8 +214,9 @@ def _bundle_on(device: str):
         if world > 1:
             warnings.warn(
                 "AVD_DETECTOR_QUANT=1 serves SINGLE-RANK: the int8 tree has "
-                "no TP/DP specs, so each of the {} ranks scores alone. "
-                "Unset AVD_DETECTOR_QUANT to shard bf16 inference over the "
+                "no TP/DP specs, so the {} ranks do not share its scoring "
+                "(a served group scores on its leader alone). Unset "
+                "AVD_DETECTOR_QUANT to shard bf16 inference over the "
                 "ranks.".format(world), stacklevel=2)
         params = quant_mod.to_device(quant_mod.quantize_params(params), dev)
         source = f"{source}+int8"
@@ -235,7 +240,7 @@ def _bundle_on(device: str):
         # of attention, so scores do not depend on the clip's length
         probs.clip_window = max(1, int(os.getenv("AVD_TEMPORAL_WINDOW",
                                                  "32")))
-    elif world > 1:
+    elif distributed.spmd():
         if fused:
             warnings.warn("AVD_ATTN_FUSED=1 is single-device-only; the "
                           "sharded detector program keeps the einsum "
@@ -274,6 +279,17 @@ def sharded_probs(family, cfg, params, temp: float, mesh, dev):
 _bundle.cache_clear = _bundle_on.cache_clear
 
 
+def sharded() -> bool:
+    """Whether the environment's detector scores sharded over the rank
+    group (``_bundle``'s sharded branch): a per-frame family, neither int8
+    nor an exported program, in a group that runs its programs over every
+    rank (``distributed.spmd``)."""
+    from avd_tpu_torch.parallel import distributed
+    return (distributed.spmd() and not os.getenv("AVD_DETECTOR_EXPORTED")
+            and os.getenv("AVD_DETECTOR_QUANT", "0") != "1"
+            and _arch() != "temporal")
+
+
 def input_size(device=None) -> int:
     """Model input resolution (loads the bundle)."""
     return _bundle(device)[0].image_size
@@ -301,11 +317,36 @@ def _prep_frames(frames_bgr: np.ndarray, size: int) -> np.ndarray:
 def detector_timeline_resized(resized_bgr: np.ndarray,
                               device=None) -> Optional[dict]:
     """``detector_timeline`` for frames already resized to
-    ``input_size()`` (BGR uint8)."""
+    ``input_size()`` (BGR uint8).  Sharded scoring is entered on every
+    rank of a served group with these frames (``distributed.run_on_group``;
+    a plain call elsewhere)."""
     if not enabled() or resized_bgr.shape[0] == 0:
         return None
-    batch = resized_bgr[..., ::-1].astype(np.float32) / 255.0
-    return _score_prepped(batch, device)
+    return _timeline_resized(resized_bgr, device)
+
+
+def _timeline_resized(resized_bgr: np.ndarray, device) -> dict:
+    if sharded():
+        from avd_tpu_torch.parallel import distributed
+        return distributed.run_on_group(score_resized, resized_bgr,
+                                        device=device)
+    return score_resized(resized_bgr, device=device)
+
+
+def score_resized(resized_bgr: np.ndarray, device=None) -> dict:
+    """Score frames resized to ``input_size()`` (BGR uint8): flipped to
+    RGB and scaled to [0, 1] here, on each rank of a served group."""
+    return _score_prepped(resized_bgr[..., ::-1].astype(np.float32) / 255.0,
+                          device)
+
+
+def warm(device=None) -> dict:
+    """Build the bundle and score one slab (``AVD_DETECTOR_SLAB``, default
+    256) of black frames: a served group's warm-up call, made before the
+    leader reads ``input_size``."""
+    size = input_size(device)
+    n = max(1, int(os.getenv("AVD_DETECTOR_SLAB", "256")))
+    return score_resized(np.zeros((n, size, size, 3), np.uint8), device)
 
 
 def detector_timeline(frames_bgr: np.ndarray, device=None) -> Optional[dict]:
@@ -313,8 +354,8 @@ def detector_timeline(frames_bgr: np.ndarray, device=None) -> Optional[dict]:
     the detector is disabled or no frames exist."""
     if not enabled() or frames_bgr.shape[0] == 0:
         return None
-    return _score_prepped(_prep_frames(frames_bgr, input_size(device)),
-                          device)
+    return _timeline_resized(resize_frames(frames_bgr, input_size(device)),
+                             device)
 
 
 def _pad(batch: np.ndarray, size: int) -> np.ndarray:

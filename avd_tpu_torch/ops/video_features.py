@@ -34,7 +34,7 @@ concurrent requests into one ``run_prep_windows`` call.
 runs the flow only for the pairs whose 320² planes changed
 (``_compute_features_gated``).  In a rank group, ``compute_features``
 with host prep shards the clip's pairs over the ranks' time axis with a
-one-frame halo (``cp_features_prepped``, ``parallel/halo.py``); the
+one-frame halo (``cp_pairs``, ``parallel/halo.py``); the
 streaming path keeps one device, as in ``avd_tpu``.  Aggregation runs on
 the host in float64 (``oracle/video_ref.summarize``).
 """
@@ -488,11 +488,25 @@ def cp_features_prepped(s320: np.ndarray, s32: np.ndarray, tex, mesh,
                         device=None, cfg=None) -> Dict:
     """``compute_features``' result from host-prep planes and textures,
     the pairs time-sharded over ``mesh`` (``cp_pair_features``)."""
-    feats = {"dup": 0, "total": s320.shape[0], "flow_means": [],
-             "flow_vars": [], "textures": [], "timeline_ai": []}
-    ham, fmean, fvar = cp_pair_features(s320, s32, mesh, device, cfg)
+    return _pairs_result(tex, *cp_pair_features(s320, s32, mesh, device,
+                                                cfg))
+
+
+def _pairs_result(tex, ham, fmean, fvar) -> Dict:
+    """``compute_features``' result from the textures and the pairs'
+    features."""
+    feats = {"dup": 0, "total": len(tex), "flow_means": [], "flow_vars": [],
+             "textures": [], "timeline_ai": []}
     return _assemble(feats, list(tex), ham.tolist(), fmean.tolist(),
                      fvar.tolist())
+
+
+def cp_pairs(s320: np.ndarray, s32: np.ndarray, device=None):
+    """``cp_pair_features`` over the group's time mesh
+    (``distributed.cp_mesh``): the video path's call on every rank of a
+    served group."""
+    from avd_tpu_torch.parallel import distributed
+    return cp_pair_features(s320, s32, distributed.cp_mesh(), device)
 
 
 def compute_features(frames: np.ndarray, device=None) -> Dict:
@@ -505,16 +519,18 @@ def compute_features(frames: np.ndarray, device=None) -> Dict:
     (``parallel/distributed.py``) host prep with the gate off takes the
     context-parallel path instead, for clips of at least two frames a
     rank (``AVD_CP=0`` turns it off): every rank is called with the same
-    frames and returns the same features."""
+    frames and returns the same features, or, in a served group, its
+    leader enters the pairs on every rank with the host-prep planes
+    (``cp_pairs`` through ``distributed.run_on_group``)."""
     n = frames.shape[0]
     cfg = config_mod.get_config()
     if cfg.prep_mode == "host" and not cfg.change_gate:
-        from avd_tpu_torch.parallel import collectives, distributed
-        mesh = distributed.cp_mesh()
-        if mesh is not None and n >= 2 * collectives.axis_size(mesh, "time"):
+        from avd_tpu_torch.parallel import distributed
+        if distributed.cp_enabled() and n >= 2 * distributed.world_size():
             s320, s32, tex = host_prep_mod.host_prep(frames,
                                                      native=cfg.native)
-            return cp_features_prepped(s320, s32, tex, mesh, device, cfg)
+            return _pairs_result(tex, *distributed.run_on_group(
+                cp_pairs, s320, s32, device=device))
         return compute_features_streaming(
             (frames[i:i + _DEFAULT_CHUNK]
              for i in range(0, n, _DEFAULT_CHUNK)), device=device)

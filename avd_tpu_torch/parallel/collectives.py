@@ -356,6 +356,32 @@ def barrier(device: torch.device) -> None:
         dist.all_reduce(t)
 
 
+# A served group's host traffic (serve/group.py): the call's header, its
+# numpy payload and the closing exchange, over host (gloo) groups of every
+# rank, rank 0 the source.
+
+def broadcast_object(obj, group):
+    """Rank 0's picklable ``obj`` on every rank of ``group``."""
+    box = [obj]
+    _record("broadcast_object", "gloo")
+    dist.broadcast_object_list(box, src=0, group=group)
+    return box[0]
+
+
+def broadcast_host(x: torch.Tensor, group) -> None:
+    """Rank 0's host tensor ``x`` into ``x`` on every rank of ``group``."""
+    _record("broadcast", "gloo")
+    dist.broadcast(x, src=0, group=group)
+
+
+def all_gather_object(obj, group) -> list:
+    """Every rank's picklable ``obj``, in rank order, on every rank."""
+    out = [None] * dist.get_world_size(group)
+    _record("all_gather_object", "gloo")
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
 PROBE_KINDS = ("all_reduce", "broadcast", "all_gather", "psum_scatter",
                "all_to_all", "ppermute")
 

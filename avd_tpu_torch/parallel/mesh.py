@@ -64,8 +64,33 @@ def make_mesh(n_devices: Optional[int] = None,
     if int(np.prod(shape)) != n:
         raise ValueError(f"mesh shape {tuple(shape)} does not hold {n} "
                          "ranks")
+    override = _served_sub_groups(axes, shape, n)
     return init_device_mesh(_device_type(), tuple(shape),
-                            mesh_dim_names=tuple(axes))
+                            mesh_dim_names=tuple(axes),
+                            **({"backend_override": override}
+                               if override else {}))
+
+
+def _served_sub_groups(axes, shape, n: int):
+    """``init_device_mesh``'s ``backend_override`` for a served group
+    (``serve/group.py``): each axis over some but not all of its ranks is
+    a sub-group of its own, which takes the world group's collective
+    timeout, so a hung rank fails a served call within it (torch gives a
+    sub-group its default of minutes).  An axis over every rank is the
+    world group itself.  None elsewhere: SPMD programs keep torch's
+    sub-groups."""
+    from avd_tpu_torch.parallel import distributed
+    if not distributed._SERVED:
+        return None
+    backend = dist.get_backend()
+    out = {}
+    for axis, k in zip(axes, shape):
+        if 1 < k < n:
+            opts = dist.ProcessGroupNCCL.Options() if backend == "nccl" \
+                else dist.ProcessGroupGloo._Options()
+            opts._timeout = distributed._TIMEOUT
+            out[axis] = (backend, opts)
+    return out
 
 
 def _device_type() -> str:

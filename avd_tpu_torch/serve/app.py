@@ -9,7 +9,11 @@ byte-for-byte; /readyz additionally reports CUDA device health (the
 reference only checks for ffprobe/exiftool binaries, api.py:110-116).
 
 ``build_app(device=...)`` analyzes on that device (default CUDA; it
-raises when CUDA is absent unless the caller asks for the CPU).
+raises when CUDA is absent unless the caller asks for the CPU).  In a
+served rank group (``serve/group.py``) ``/readyz`` reports the group's
+size as ``devices`` and ``/metrics`` its state under ``group``; under
+``torchrun --nproc-per-node N`` rank 0 of ``main`` serves and the others
+follow.
 """
 
 from __future__ import annotations
@@ -44,8 +48,11 @@ def _ready_probe() -> Dict[str, Any]:
     }
     try:
         import torch
+
+        from avd_tpu_torch.serve import group
         n = torch.cuda.device_count()
-        out["cuda"] = {"devices": n,
+        leader = group.active()
+        out["cuda"] = {"devices": leader.size if leader else n,
                        "kind": torch.cuda.get_device_name(0) if n else None}
     except Exception as e:
         out["cuda"] = {"devices": 0, "error": str(e)}
@@ -238,6 +245,9 @@ def build_app(analyze_fn=None, device=None) -> App:
             snap["batch_jobs_in"] = b.jobs_in
             snap["batches_formed"] = b.batches_formed
             snap["batch_fused_jobs"] = b.fused_jobs
+        from avd_tpu_torch.serve import group
+        if group.active() is not None:
+            snap["group"] = group.active().stats()
         accept = (req.headers.get("Accept") or "")
         if (req.query.get("format") == "prometheus"
                 or ("text/plain" in accept
@@ -364,7 +374,9 @@ def build_app(analyze_fn=None, device=None) -> App:
 
 def main(argv=None) -> int:
     """Run a single-process server:
-    ``python -m avd_tpu_torch.serve.app [--device cuda|cpu]``."""
+    ``python -m avd_tpu_torch.serve.app [--device cuda|cpu]``; under
+    ``torchrun --nproc-per-node N`` (``WORLD_SIZE`` > 1) one served group:
+    rank 0 serves, the others follow (``serve/group.join``)."""
     import argparse
 
     from avd_tpu_torch.serve.http import make_server
@@ -372,17 +384,34 @@ def main(argv=None) -> int:
         description="single-process AI-video analysis service")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where analyses run (default cuda)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="under torchrun, the group's backend (default nccl "
+                         "on cuda, gloo on the CPU)")
     args = ap.parse_args(argv)
     cfg = get_config()
+    device, leader = args.device, None
+    if int(os.getenv("WORLD_SIZE", "1")) > 1:
+        from avd_tpu_torch.serve import group
+        leader = group.join(args.device, args.dist_backend)
+        if leader is None:
+            return 0  # a follower, stopped by its leader
+        device = leader.device
     host, _, port = cfg.bind.rpartition(":")
-    server = make_server(build_app(device=args.device), host or "0.0.0.0",
+    server = make_server(build_app(device=device), host or "0.0.0.0",
                          int(port))
+    if leader is not None:
+        leader.on_fail = lambda: threading.Thread(
+            target=server.shutdown, daemon=True).start()
     print(f"avd_tpu_torch serving on {cfg.bind}", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
-    return 0
+    if leader is None:
+        return 0
+    code = group.GROUP_FAILED if leader.failed else 0
+    leader.stop()
+    return code
 
 
 if __name__ == "__main__":

@@ -49,7 +49,26 @@ cannot get its device (no CUDA without ``--device cpu``) exits with
 Gunicorn's boot-error code, and the master then shuts down with it
 instead of respawning.
 
-Run: ``python -m avd_tpu_torch.serve.master [--device cuda|cpu]``
+A worker spans every visible card, as ``avd_tpu``'s worker sees every
+chip: with more than one, it is the leader of a rank group
+(``serve/group.py``) whose followers it starts itself, and it shards the
+detector and the batch path's pair features over them.  One visible card
+(``CUDA_VISIBLE_DEVICES`` naming one) is today's single-device path: no
+group, no follower.  ``--group-size N`` asks for N ranks (1: a group of
+one, NCCL's path on one card; on the CPU, gloo ranks), ``--dist-backend``
+names the group's backend (default NCCL on cards, gloo on the CPU; more
+NCCL ranks than cards is refused at boot).  Rank r of every worker binds
+``cuda:r`` (gloo ranks share cards modulo their count).  Recycling,
+``SIGHUP``, ``SIGTTIN``/``SIGTTOU`` and ``SIGTERM`` act on the leader and
+so on its whole group: a replacement group boots and warms before the old
+one drains, and followers die with their leader.  A group that fails
+(a rank raised, exited or hung past the collective timeout), or that
+cannot form or warm, makes its worker exit with ``group.GROUP_FAILED``,
+and the master respawns it; only a group ``group.plan`` refuses is a
+boot error.
+
+Run: ``python -m avd_tpu_torch.serve.master [--device cuda|cpu]
+[--group-size N] [--dist-backend nccl|gloo]``
 """
 
 from __future__ import annotations
@@ -176,8 +195,10 @@ def _warmup(device) -> None:
         print(f"[worker {os.getpid()}] warmup skipped: {e!r}", flush=True)
 
 
-def _worker_main(max_requests: int, device: str) -> None:
-    """Child process: serve on ``device``; at the request budget, ask the
+def _worker_main(max_requests: int, device: str, group_size: int = 0,
+                 backend: Optional[str] = None) -> None:
+    """Child process: serve on ``device`` (over a rank group of
+    ``group_size`` ranks, ``group.plan``); at the request budget, ask the
     master for a zero-downtime replacement and keep serving until told to
     retire."""
     # the master blocks its control signals; undo the inherited mask.
@@ -194,16 +215,30 @@ def _worker_main(max_requests: int, device: str) -> None:
 
     from avd_tpu_torch import device as device_mod
     from avd_tpu_torch.serve import app as app_mod
+    from avd_tpu_torch.serve import group as group_mod
     from avd_tpu_torch.serve import http as http_mod
 
     cfg = get_config()
+    _start_heartbeat()
     try:
         dev = device_mod.pinned(device)
+        group_size, backend = group_mod.plan(device, group_size, backend)
     except (RuntimeError, ValueError) as e:
-        # no device will appear on a respawn either: tell the master
+        # no device will appear on a respawn, no refused group become
+        # possible: tell the master
         print(f"[worker {os.getpid()}] failed to boot: {e}", flush=True)
         sys.exit(WORKER_BOOT_ERROR)
-    _start_heartbeat()
+    try:
+        # a group boots and runs each of its calls once before serving
+        leader = group_mod.start(device, group_size, backend)
+    except Exception as e:
+        # a follower that exited or hung, a rendezvous, a rank out of
+        # memory: a respawned group may form
+        print(f"[worker {os.getpid()}] rank group failed to form: {e!r}",
+              flush=True)
+        sys.exit(group_mod.GROUP_FAILED)
+    if leader is not None:
+        dev = leader.device
     _warmup(dev)
     host, _, port = cfg.bind.rpartition(":")
     application = app_mod.build_app(device=dev)
@@ -259,6 +294,17 @@ def _worker_main(max_requests: int, device: str) -> None:
         threading.Thread(target=stop, daemon=True).start()
 
     signal.signal(signal.SIGTERM, term)
+    if leader is not None:
+        def group_failed():
+            # stop serving; a call stuck on a hung rank is not waited for
+            term(None, None)
+            timer = threading.Timer(cfg.graceful_timeout_s, os._exit,
+                                    (group_mod.GROUP_FAILED,))
+            timer.daemon = True
+            timer.start()
+        leader.on_fail = group_failed
+        if leader.failed:  # failed before it could say so (the warm-up)
+            group_failed()
     print(f"[worker {os.getpid()}] serving on {cfg.bind} "
           f"(max_requests={max_requests})", flush=True)
     _post("ready", _SIG_READY)
@@ -267,15 +313,22 @@ def _worker_main(max_requests: int, device: str) -> None:
     # the blackhole window at most one poll
     server.serve_forever(poll_interval=0.02)
     server.server_close()  # joins in-flight handler threads (drain)
+    code = 0
+    if leader is not None:
+        code = group_mod.GROUP_FAILED if leader.failed else 0
+        leader.stop()
     print(f"[worker {os.getpid()}] exiting after {served} requests",
           flush=True)
-    sys.exit(0)
+    sys.exit(code)
 
 
 class Master:
-    def __init__(self, device: str = "cuda") -> None:
+    def __init__(self, device: str = "cuda", group_size: int = 0,
+                 backend: Optional[str] = None) -> None:
         self.cfg = get_config()
         self.device = device  # handed to every worker's build_app
+        # each worker's rank group (serve/group.plan; 0: every visible card)
+        self.group_size, self.backend = group_size, backend
         self.exit_code = 0
         # private heartbeat dir (0700, master-owned) — see _hb_path
         import tempfile
@@ -308,7 +361,8 @@ class Master:
             # the master can distinguish crash-respawn from retirement
             code = 0
             try:
-                _worker_main(budget, self.device)
+                _worker_main(budget, self.device, self.group_size,
+                             self.backend)
             except SystemExit as e:
                 code = int(e.code or 0)
             except BaseException:
@@ -588,8 +642,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where each worker analyzes (default cuda; a "
                          "worker without CUDA stops the master)")
+    ap.add_argument("--group-size", type=int, default=0,
+                    help="ranks of each worker's group (default 0: every "
+                         "visible card, no group on one card or the CPU)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    default=None,
+                    help="the group's backend (default nccl on cuda, gloo "
+                         "on the CPU; gloo shares cards)")
     args = ap.parse_args(argv)
-    return Master(args.device).run()
+    return Master(args.device, args.group_size, args.dist_backend).run()
 
 
 if __name__ == "__main__":

@@ -123,8 +123,8 @@ Phases, in order; any failure exits non-zero before the result line:
 22. cross-request batching: one worker, ``GUNICORN_THREADS=4``,
     ``AVD_BATCH_WINDOW_MS=100``: 4 concurrent uploads of the 1080p mp4
     (``batch_fused_jobs`` >= 2, each envelope equal to the solo one), 4
-    sequential; then, with batching on and off, one round of 8 uploads
-    from 1 client and 16 from 4, every envelope held to the solo one:
+    sequential; then, with batching on and off, one round of 4 uploads
+    from 1 client and 8 from 4, every envelope held to the solo one:
     requests/s, p50 and max latency over the rounds
     (``chiprun_out/serving.json``);
 23. the trace route: the in-process app with ``DEBUG=1``,
@@ -204,7 +204,26 @@ Phases, in order; any failure exits non-zero before the result line:
     the gathered gradients' rtol 1e-5, ZeRO-1's moments and FSDP's
     parameters sliced): warm ms a step, peak memory a rank, collectives by
     kind and transport, and no kernel launched on any rank
-    (``chiprun_out/train_parallel.json``).
+    (``chiprun_out/train_parallel.json``);
+34. one served worker over a rank group (``serve/group.py``): the real
+    master with one worker as (a) one NCCL rank joined through a store,
+    (b) 2 gloo ranks sharing the card, (c) the master's default where
+    there are two or more cards, one NCCL rank a card (else logged as not
+    run); each with the detector on (the shipped ``full`` ViT sharded over
+    the group) and the 1080p mp4, streaming and, in (b) and (c), with
+    ``AVD_STREAM=0`` (the context-parallel pairs): ``/readyz`` reports
+    the group's size, every envelope against the one-card one (label,
+    |Δai_score| <= 1e-3, detector timeline 2e-2, the heuristic timeline
+    1e-6 streaming, flow stats rtol 1e-5 through the pairs), warp and
+    blur+solve launched on every rank for the ``AVD_STREAM=0`` upload,
+    collectives by kind and transport per rank (the compute over NCCL or
+    staged gloo as the group's backend says, the dispatch over gloo);
+    boot-to-warm s, the warm group scoring call against the one-card
+    call, requests/s, p50 and max latency from 1 and 4 clients, beside a one-card worker (``CUDA_VISIBLE_DEVICES=0``:
+    no group) with the same uploads; in (b) and (c) a killed follower
+    makes the worker exit and the master respawn a group that serves;
+    SIGTERM leaves no process of any group
+    (``chiprun_out/served_groups.json``, logs ``serve_group_*.log``).
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It needs the repository beside it
@@ -1906,10 +1925,10 @@ def _free_port():
 
 
 class MasterProc:
-    """``python -m avd_tpu_torch.serve.master --device cuda`` in a
+    """``python -m avd_tpu_torch.serve.master --device cuda [args]`` in a
     subprocess on a free port, its log under ``chiprun_out/``."""
 
-    def __init__(self, name, **env):
+    def __init__(self, name, args=(), **env):
         self.port = _free_port()
         self.log_path = os.path.join("chiprun_out", f"serve_{name}.log")
         os.makedirs("chiprun_out", exist_ok=True)
@@ -1921,7 +1940,7 @@ class MasterProc:
         with open(self.log_path, "w") as f:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "avd_tpu_torch.serve.master",
-                 "--device", "cuda"], env=full, stdout=f,
+                 "--device", "cuda", *args], env=full, stdout=f,
                 stderr=subprocess.STDOUT,
                 cwd=os.path.dirname(os.path.abspath(__file__)))
         self.url = f"http://127.0.0.1:{self.port}"
@@ -2094,15 +2113,15 @@ def phase_served(wav_path, card_name):
 
 
 SERVE_ROUNDS = 1             # timed rounds a batching mode
-SERVE_UPLOADS = {1: 8, 4: 16}  # uploads a round at each client count
+SERVE_UPLOADS = {1: 4, 4: 8}  # uploads a round at each client count
 
 
 def phase_batching(ref_mp4):
     """Cross-request batching on the card: one worker with 4 threads and
     AVD_BATCH_WINDOW_MS=100; 4 concurrent uploads of the 1080p mp4 fuse
     (batch_fused_jobs >= 2) and each equals the solo envelope.  Then, with
-    batching on and off, SERVE_ROUNDS rounds of 8 uploads from 1 client
-    and 16 from 4: requests/s, p50 and max latency over every upload of
+    batching on and off, SERVE_ROUNDS rounds of 4 uploads from 1 client
+    and 8 from 4: requests/s, p50 and max latency over every upload of
     the rounds, every envelope held to the solo one."""
     from avd_tpu_torch.client import Client
     rows = {}
@@ -3218,6 +3237,320 @@ def phase_train_parallel(spec, inputs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 34: one served worker over a rank group
+# ---------------------------------------------------------------------------
+
+GROUP_UPLOADS = 4  # concurrent uploads of the 1080p mp4 from 4 clients
+
+
+def _metrics(url):
+    import urllib.request
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        return json.loads(r.read())["metrics"]
+
+
+def _alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    try:  # a zombie is gone for our purposes
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _wait_gone(pids, what, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while any(_alive(p) for p in pids):
+        check(time.monotonic() < deadline,
+              f"{what}: pids {[p for p in pids if _alive(p)]} still alive")
+        time.sleep(0.2)
+
+
+def _group_of(master, exclude=(), timeout=240.0):
+    """The serving group's state (``/metrics``'s ``group``) once a group
+    other than ``exclude``'s leader serves."""
+    deadline = time.monotonic() + timeout
+    while True:
+        master.assert_clean()
+        try:
+            g = _metrics(master.url).get("group")
+        except OSError:
+            g = None
+        if g and g["pids"][0] not in exclude:
+            return g
+        check(master.proc.poll() is None,
+              f"master exited {master.proc.returncode}:\n"
+              f"{master.text()[-3000:]}")
+        check(time.monotonic() < deadline,
+              f"no group served after {timeout:.0f} s:\n"
+              f"{master.text()[-3000:]}")
+        time.sleep(0.25)
+
+
+def _same_group_served(served, ref, what, cp=False):
+    """A group's envelope against the one-card one: the label, |Δai_score|
+    <= 1e-3, the detector timeline within 2e-2; the heuristic timeline
+    within 1e-6 (streaming: the leader's own path) or, with the
+    context-parallel pairs, the flow stats at rtol 1e-5."""
+    from avd_tpu_torch import schema
+    schema.validate(served)
+    for key in ("video_error", "audio_error"):
+        check(key not in served["hints"],
+              f"{what}: {key} {served['hints'].get(key)}")
+    check("detector_error" not in served["video"],
+          f"{what}: detector_error {served['video'].get('detector_error')}")
+    check(served["result"]["label"] == ref["result"]["label"],
+          f"{what}: label {served['result']} against {ref['result']}")
+    d_ai = abs(served["result"]["ai_score"] - ref["result"]["ai_score"])
+    check(d_ai <= 1e-3, f"{what}: |Δai_score| {d_ai}")
+    d_det = float(np.max(np.abs(np.subtract(
+        served["video"]["detector"]["timeline"],
+        ref["video"]["detector"]["timeline"]))))
+    check(d_det <= 2e-2, f"{what}: detector timeline |Δ| {d_det}")
+    a, b = served["video"]["timeline"], ref["video"]["timeline"]
+    d_tl = float(np.max(np.abs(np.subtract(a, b))))
+    if cp:
+        for k in ("flow_mean", "flow_var"):
+            x, y = served["video"]["summary"][k], ref["video"]["summary"][k]
+            check(abs(x - y) <= 1e-5 * abs(y) + 1e-9,
+                  f"{what}: {k} {x} against {y}")
+        check(d_tl <= 1e-5, f"{what}: heuristic timeline |Δ| {d_tl}")
+    else:
+        check(d_tl <= TIMELINE_EQ, f"{what}: heuristic timeline |Δ| {d_tl}")
+    return {"d_ai_score": d_ai, "d_detector": d_det, "d_timeline": d_tl}
+
+
+def _timed_rows(client, single_s, ref, what):
+    """Latency rows: 1 client from the single upload before (``single_s``),
+    4 clients from one round of ``GROUP_UPLOADS`` concurrent uploads, each
+    envelope held to ``ref``."""
+    w, lats, raws = _timed_requests(client, MP4_1080P, 4, GROUP_UPLOADS)
+    for i, raw in enumerate(raws):
+        _same_group_served(raw, ref, f"{what} 4 clients #{i}")
+    return {"clients_1": _latency_row([single_s], [single_s], 1),
+            "clients_4": _latency_row([w], lats, 4)}
+
+
+def _rank_diff(before, after, key):
+    out = []
+    for b, a in zip(before["ranks"], after["ranks"]):
+        out.append({k: a[key].get(k, 0) - b[key].get(k, 0)
+                    for k in a[key] if a[key].get(k, 0) != b[key].get(k, 0)})
+    return out
+
+
+def _served_group(label, args, size, refs, card, modes, kill):
+    """One group (``args`` to the master) with the detector on, a master
+    for each of ``modes``: ``stream`` (uploads, rounds from 1 and 4
+    clients, ``kill``: a follower killed and the group respawned) and
+    ``batch``, ``AVD_STREAM=0`` (the context-parallel pairs: every rank's
+    launches); each stopped, no process of theirs left."""
+    import re
+    import torch
+    from avd_tpu_torch.client import Client
+    kind = torch.cuda.get_device_name(0)
+    row = {"args": list(args), "size": size}
+    for mode in modes:
+        env = {"WEB_CONCURRENCY": "1", "GUNICORN_THREADS": "4",
+               "AVD_DETECTOR": "1"}
+        if mode == "batch":
+            env["AVD_STREAM"] = "0"
+        master = MasterProc(f"group_{label}_{mode}", args, **env)
+        pids = set()
+        try:
+            t0 = time.perf_counter()
+            g = _group_of(master)
+            boot_s = time.perf_counter() - t0
+            pids |= set(g["pids"])
+            check(g["size"] == size and len(g["pids"]) == size,
+                  f"group {label}: {g}")
+            c = Client(master.url, timeout=600, retries=0)
+            ready = c.wait_ready(timeout_s=60, poll_s=0.5)
+            check(ready["cuda"]["devices"] == size
+                  and ready["cuda"]["kind"] == kind,
+                  f"group {label} /readyz {ready['cuda']}")
+            before = _metrics(master.url)["group"]
+            t1 = time.perf_counter()
+            served = c.analyze(MP4_1080P).raw
+            wall = time.perf_counter() - t1
+            after = _metrics(master.url)["group"]
+            res = {"boot_to_warm_s": boot_s, "upload_s": wall,
+                   "backend": g["backend"], "pids": g["pids"],
+                   "diff": _same_group_served(served, refs[mode],
+                                              f"group {label} {mode}",
+                                              cp=mode == "batch"),
+                   "calls": after["calls"],
+                   "launches": _rank_diff(before, after, "launches"),
+                   "collectives": _rank_diff(before, after, "collectives")}
+            if mode == "batch":
+                for r, ls in enumerate(res["launches"]):
+                    check(ls.get("warp_bilinear", 0) > 0
+                          and ls.get("box_blur_solve", 0) > 0,
+                          f"group {label} AVD_STREAM=0: rank {r} launches "
+                          f"{res['launches']}")
+                check(after["calls"]["cp_pairs"]["n"] >= 2,
+                      f"group {label}: calls {after['calls']}")
+                # compute over the world group's transport, the dispatch
+                # (one broadcast an array: 2 planes, the frames) over gloo
+                how = "nccl" if g["backend"] == "nccl" else "gloo-staged"
+                for r, cs in enumerate(res["collectives"]):
+                    check(cs.get(f"psum/{how}", 0) > 0
+                          and cs.get(f"all_gather/{how}", 0) > 0
+                          and cs.get("broadcast/gloo", 0) == 3,
+                          f"group {label} AVD_STREAM=0: rank {r} "
+                          f"collectives {cs}")
+            else:
+                res["score_call_ms"] = after["calls"]["score_resized"][
+                    "last_ms"]
+            if mode == "stream":
+                res.update(_timed_rows(c, wall, refs[mode], f"group {label}"))
+            if mode == "stream" and kill:
+                dead = master.text().count("rank group failed")
+                os.kill(g["pids"][1], 9)
+                t2 = time.perf_counter()
+                deadline = time.monotonic() + 120
+                while master.text().count("rank group failed") == dead:
+                    check(time.monotonic() < deadline,
+                          f"group {label}: a killed follower went unseen")
+                    time.sleep(0.1)
+                g2 = _group_of(master, exclude=g["pids"][:1])
+                pids |= set(g2["pids"])
+                res["respawn_s"] = time.perf_counter() - t2
+                _wait_gone(g["pids"], f"group {label}: the killed group")
+                res["after_kill"] = _same_group_served(
+                    c.analyze(MP4_1080P).raw, refs[mode],
+                    f"group {label} after a killed follower")
+                check(re.search(rf"worker {g['pids'][0]} died \(exit 4\)",
+                                master.text()) is not None,
+                      f"group {label}: leader exit code:\n"
+                      f"{master.text()[-2000:]}")
+            row[mode] = res
+        finally:
+            text = master.stop()
+        check(master.proc.returncode == 0,
+              f"group {label} master exit {master.proc.returncode}")
+        _wait_gone(sorted(pids), f"group {label} {mode} after SIGTERM")
+        check("Traceback" not in text and "warmup skipped" not in text,
+              f"group {label} log:\n{text[-3000:]}")
+    return row
+
+
+def _served_one_card(refs):
+    """The baseline in the same run: one worker on one card
+    (``CUDA_VISIBLE_DEVICES=0``: today's path, no group), streaming with
+    the detector, the same uploads as the groups'."""
+    from avd_tpu_torch.client import Client
+    master = MasterProc("group_one_card", (), CUDA_VISIBLE_DEVICES="0",
+                        WEB_CONCURRENCY="1", GUNICORN_THREADS="4",
+                        AVD_DETECTOR="1")
+    try:
+        t0 = time.perf_counter()
+        master.wait_log("serving on")
+        res = {"boot_to_warm_s": time.perf_counter() - t0}
+        c = Client(master.url, timeout=600, retries=0)
+        ready = c.wait_ready(timeout_s=60, poll_s=0.5)
+        check(ready["cuda"]["devices"] == 1 and
+              "group" not in _metrics(master.url),
+              f"one-card worker: /readyz {ready['cuda']}")
+        t1 = time.perf_counter()
+        served = c.analyze(MP4_1080P).raw
+        res["upload_s"] = time.perf_counter() - t1
+        res["diff"] = _same_group_served(served, refs["stream"],
+                                         "one-card worker")
+        res.update(_timed_rows(c, res["upload_s"], refs["stream"],
+                               "one-card worker"))
+    finally:
+        text = master.stop()
+    check("Traceback" not in text and "rank group" not in text,
+          f"one-card worker log:\n{text[-3000:]}")
+    return res
+
+
+def phase_served_groups(card):
+    """One served worker over a rank group (``serve/group.py``): (a) one
+    NCCL rank joined through a store, (b) 2 gloo ranks sharing the card,
+    (c) one NCCL rank a card where there are two or more; each with the
+    1080p mp4 and the shipped full ViT, streaming and ``AVD_STREAM=0``,
+    against the one-card envelopes; boot-to-warm, the warm group scoring
+    call against the one-card call, requests/s and latency beside a
+    one-card worker's."""
+    import torch
+    from avd_tpu_torch import pipeline
+    from avd_tpu_torch.models import scoring
+    check(os.path.exists(MP4_1080P), f"{MP4_1080P} was not written")
+    cuda = torch.device(DEV)
+    refs = {}
+    _set_env(AVD_DETECTOR="1", AVD_ATTN_FUSED=None, AVD_DETECTOR_PRESET=None,
+             AVD_DETECTOR_CKPT=None, AVD_DETECTOR_BLEND=None,
+             AVD_DETECTOR_SLAB=None)
+    try:
+        for mode, stream in (("stream", "1"), ("batch", "0")):
+            _set_env(AVD_STREAM=stream)
+            refs[mode] = pipeline.analyze_path(MP4_1080P, device=cuda)
+        _set_env(AVD_STREAM=None)
+        resized = scoring.resize_frames(
+            pan_frames(FRAMES_MAIN, H_MAIN, W_MAIN),
+            scoring.input_size(cuda))
+
+        def one_card():
+            scoring.detector_timeline_resized(resized, cuda)
+            torch.cuda.synchronize()
+        # the first call builds the bundle: the median of the warm four
+        one_card_ms = statistics.median(_wall_ms(one_card, reps=5)[1:])
+    finally:
+        _set_env(AVD_DETECTOR=None, AVD_STREAM=None)
+    torch.cuda.empty_cache()  # the groups share the card with this process
+    out = {"card": card, "one_card_score_ms": one_card_ms,
+           "one_card_worker": _served_one_card(refs), "groups": {}}
+    base = out["one_card_worker"]
+    log(f"served one-card worker (CUDA_VISIBLE_DEVICES=0, no group) on "
+        f"{card}: boot-to-warm {base['boot_to_warm_s']:.2f} s; upload "
+        f"{base['upload_s']:.3f} s; |Δ| {base['diff']}; "
+        + "; ".join(_fmt_row(base[f"clients_{k}"]) for k in (1, 4)))
+    # (a) streams only: (b) and (c) serve the context-parallel pairs
+    both = ("stream", "batch")
+    groups = [("a_nccl_1", ["--group-size", "1"], 1, ("stream",), False),
+              ("b_gloo_2", ["--group-size", "2", "--dist-backend", "gloo"],
+               2, both, True)]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:  # the default: every visible card, NCCL
+        groups.append((f"c_nccl_{n_cards}", [], n_cards, both, True))
+    else:
+        log("served groups: (c) one NCCL rank a card not run: "
+            f"{n_cards} card visible")
+    for label, args, size, modes, kill in groups:
+        row = _served_group(label, args, size, refs, card, modes, kill)
+        out["groups"][label] = row
+        st = row["stream"]
+        log(f"served group {label} ({size} rank(s), {st['backend']}) on "
+            f"{card}: boot-to-warm {st['boot_to_warm_s']:.2f} s (streaming"
+            f" master); warm group scoring call (145 frames, bucket 256) "
+            f"{st['score_call_ms']:.2f} ms against {one_card_ms:.2f} ms on "
+            f"one card; upload streaming {st['upload_s']:.3f} s; |Δ| "
+            f"{st['diff']}")
+        if "batch" in row:
+            ba = row["batch"]
+            log(f"served group {label} AVD_STREAM=0 on {card}: boot-to-warm "
+                f"{ba['boot_to_warm_s']:.2f} s; upload {ba['upload_s']:.3f} "
+                f"s; |Δ| {ba['diff']}; launches a rank {ba['launches']}; "
+                f"collectives a rank {ba['collectives']}")
+        for clients in (1, 4):
+            if f"clients_{clients}" in st:
+                log(f"served group {label} on {card}: "
+                    + _fmt_row(st[f"clients_{clients}"]))
+        if "respawn_s" in st:
+            log(f"served group {label} on {card}: a killed follower: the "
+                f"group respawned and served in {st['respawn_s']:.2f} s; "
+                f"|Δ| {st['after_kill']}")
+    with open(os.path.join("chiprun_out", "served_groups.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
 def kernel_entry(name, source, replaces, rows, max_err, launches):
     ms = ROUNDS * sum(r[1] for r in rows)
     plain = ROUNDS * sum(r[2] for r in rows)
@@ -3308,6 +3641,7 @@ def main():
             phase_parallel_world1(frames)
         par_rows = phase_parallel_ranks(spec, par_inputs, par_ref)
         train_par_rows = phase_train_parallel(spec, par_inputs)
+        group_rows = phase_served_groups(card)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -3346,6 +3680,11 @@ def main():
             train_par_rows["kernel_launches_world1"].get(entry["name"], 0)
         entry["streaming_launches"] = stream_launches.get(entry["name"], 0)
         entry["served_launches"] = served_launches.get(entry["name"], 0)
+    # each rank's launches in a served group's AVD_STREAM=0 upload (34)
+    for entry in kernels:
+        entry["served_group_launches"] = {
+            label: [r.get(entry["name"], 0) for r in row["batch"]["launches"]]
+            for label, row in group_rows["groups"].items() if "batch" in row}
     # the parallel path: counts over the world-1 programs (phase 31) and
     # each rank's in phase 32 (programs cp and cp_iter)
     for entry in kernels[:3]:

@@ -31,6 +31,7 @@ from avd_tpu_torch.ops.kernels import attention, blur_solve, flow_iter, warp
 from avd_tpu_torch.parallel import distributed, dryrun
 from avd_tpu_torch.serve import app as serve_app
 from avd_tpu_torch.serve import batching
+from avd_tpu_torch.serve import group as serve_group
 from tools import torch_bench_detector, torch_eval_detector
 
 torch.set_num_threads(1)
@@ -72,7 +73,8 @@ for n in ("avd_tpu_torch.models", "avd_tpu_torch.models.detector",
           "avd_tpu_torch.parallel.collectives",
           "avd_tpu_torch.parallel.mesh", "avd_tpu_torch.parallel.distributed",
           "avd_tpu_torch.parallel.halo", "avd_tpu_torch.parallel.pipeline",
-          "avd_tpu_torch.parallel.dryrun", "avd_tpu_torch.parallel.zero"):
+          "avd_tpu_torch.parallel.dryrun", "avd_tpu_torch.parallel.zero",
+          "avd_tpu_torch.serve.group"):
     assert n in names, n
 """
 
@@ -105,6 +107,21 @@ shutil.rmtree(mm.hb_dir)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("torch", "jax", "avd_tpu")
              or k in ("avd_tpu_torch.pipeline", "avd_tpu_torch.serve.app"))
+print(bad)
+assert not bad, bad
+"""
+
+# A served group's follower (``python -m avd_tpu_torch.serve.group``) loads
+# its module as __main__ and the calls it runs; none reaches jax or avd_tpu.
+_FOLLOWER_PROBE = r"""
+import runpy, sys
+ns = runpy.run_module("avd_tpu_torch.serve.group", run_name="follower")
+calls = ns["_calls"]()
+assert sorted(k.rsplit(".", 1)[1] for k in calls) == [
+    "cp_pairs", "score_resized", "warm"], sorted(calls)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.")
+             or k == "avd_tpu" or k.startswith("avd_tpu."))
 print(bad)
 assert not bad, bad
 """
@@ -169,6 +186,13 @@ def test_serving_master_imports_no_torch():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.strip() == "[]"
+
+
+def test_served_group_follower_imports_no_jax_and_no_avd_tpu():
+    r = subprocess.run([sys.executable, "-c", _FOLLOWER_PROBE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_analysis_layers_import_no_serving():
@@ -277,6 +301,12 @@ _ENTRY_POINTS = {
         "/nonexistent/ckpt", detector.make_config("small"), None),
     "dryrun.run_in_process": lambda: dryrun.run_in_process(
         ["cp"], {}, dryrun.small_spec()),
+    "serve.group.start": lambda: serve_group.start(),
+    "serve.group.join": lambda: serve_group.join(),
+    "scoring.warm": lambda: scoring.warm(),
+    "scoring.score_resized": lambda: scoring.score_resized(_frames()),
+    "video_features.cp_pairs": lambda: video_features.cp_pairs(
+        np.zeros((2, 320, 320), np.uint8), np.zeros((2, 32, 32), np.uint8)),
 }
 
 

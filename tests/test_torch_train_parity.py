@@ -195,7 +195,8 @@ def test_remat_gradients_equal_non_remat(name):
 
 
 @pytest.mark.parametrize("weights,bound", [("random", 3e-2),
-                                           ("shipped", 0.15)])
+                                           ("shipped", 0.15),
+                                           ("cnn_small", 0.1)])
 def test_full_width_bf16_gradients_against_f32(weights, bound, monkeypatch):
     """The ``full`` ViT's bf16 gradients on 8 frames at 224² against the
     same loss evaluated in f32 (every bf16 rounding off), per leaf in
@@ -204,22 +205,93 @@ def test_full_width_bf16_gradients_against_f32(weights, bound, monkeypatch):
     small, it costs up to 0.0963 (``patch_b``), and the median leaf 0.033:
     the floor below which two bf16 evaluations, card and CPU among them,
     cannot be told apart, so ``chip_smoke.py`` holds the card's gradients
-    to the CPU's at a random init."""
+    to the CPU's at a random init.  The CNN at the shipped ``cnn_small``
+    weights (64 px, its serving width) on the same frames at 64²: up to
+    0.0889 (``stem_b``), median 0.082 (loss 0.20)."""
+    from avd_tpu_torch.models import cnn as tcnn
     from avd_tpu_torch.models import scoring
-    cfg = tdetector.make_config("full")
-    tree = (tdetector.init_params(0, cfg) if weights == "random" else
-            convert.load_checkpoint(scoring._shipped_ckpt("vit", "full"),
-                                    cfg))
-    f, y = ttrain.synthetic_batch(np.random.default_rng(5), 8, 224,
+    if weights == "cnn_small":
+        family, cfg = tcnn, tcnn.make_config("small")
+        tree = convert.load_checkpoint(scoring._shipped_ckpt("cnn", "small"),
+                                       cfg)
+    else:
+        family, cfg = tdetector, tdetector.make_config("full")
+        tree = (tdetector.init_params(0, cfg) if weights == "random" else
+                convert.load_checkpoint(
+                    scoring._shipped_ckpt("vit", "full"), cfg))
+    f, y = ttrain.synthetic_batch(np.random.default_rng(5), 8,
+                                  cfg.image_size,
                                   ("blobs", "geometric", "cellular"))
 
     def grads():
         t = tdetector._map_tree(lambda _, v: v.detach().clone(), tree)
-        return _port_loss_and_grads(tdetector, cfg, t, f, y, 0.02)[1]
+        return _port_loss_and_grads(family, cfg, t, f, y, 0.02)[1]
 
     g_bf16 = grads()
     monkeypatch.setattr(tdetector, "_bf16", lambda x: x.float())
+    monkeypatch.setattr(tcnn, "_bf16", lambda x: x.float())
     g_f32 = grads()
     rels = [float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
             for a, b in zip(g_bf16, g_f32)]
     assert max(rels) <= bound, (int(np.argmax(rels)), max(rels))
+
+
+def test_cnn_gradient_gap_to_avd_tpu_is_bf16_rounding(monkeypatch):
+    """Why the one-device CNN's gradients at the shipped ``cnn_small``
+    weights sit past 3e-2 of ``avd_tpu``'s on noise frames (ROADMAP §3
+    item 7: 3.37 % on the stem bias when measured): rounding, not a
+    fault.  What shows there is no fault is the first assertion: with
+    every bf16 cast turned into f32 on both sides (the port's ``_bf16``,
+    ``avd_tpu``'s ``jnp.bfloat16``) the two gradients agree to f32
+    rounding on every leaf (measured at most 1e-6).  In bf16 the port's
+    gradients stay within 0.011 of that exact value (its floor; 0.0044 on
+    ``stem_b``), while ``avd_tpu``'s bf16 arithmetic on the CPU (XLA) moves
+    its own by up to 0.073 (on ``stem_b``).  On each leaf where the
+    two bf16 runs differ by more than 3e-2 (8 leaves with these frames,
+    0.072 on ``stem_b``), the port's floor is at most 0.13 of that gap
+    (held at 0.2): the gap is ``avd_tpu``'s rounding."""
+    from avd_tpu.models import cnn as jcnn
+    from avd_tpu_torch.models import cnn as tcnn
+    from avd_tpu_torch.models import scoring
+    cfg, jc = tcnn.make_config("small"), jcnn.make_config("small")
+    tree = convert.load_checkpoint(scoring._shipped_ckpt("cnn", "small"),
+                                   cfg)
+    rng = np.random.default_rng(0)
+    x = rng.random((8, 64, 64, 3), np.float32)
+    y = rng.integers(0, 2, 8).astype(np.int32)
+    jtree = jax.tree_util.tree_map(lambda t: jnp.asarray(t.float().numpy()),
+                                   tree)
+
+    def port():
+        t = tdetector._map_tree(lambda _, v: v.detach().clone().float(),
+                                tree)
+        return [g.numpy() for g in
+                _port_loss_and_grads(tcnn, cfg, t, x, y, 0.02)[1]]
+
+    def ref():  # traced anew on each call: jnp.bfloat16 is read then
+        g = jax.jit(jax.grad(lambda p: jcnn.loss_fn(
+            p, jnp.asarray(x), jnp.asarray(y), jc, False, 0.02)))(jtree)
+        t = convert.from_jax_params(jax.tree_util.tree_map(np.asarray, g),
+                                    cfg)
+        return [v.float().numpy() for v in optim.leaves_of(t)]
+
+    port_bf16, ref_bf16 = port(), ref()
+    monkeypatch.setattr(tcnn, "_bf16", lambda v: v.float())
+    monkeypatch.setattr(jnp, "bfloat16", jnp.float32)
+    port_f32, ref_f32 = port(), ref()
+
+    def rel(a, b):  # each leaf against the exact (f32) gradient's norm
+        return np.array([np.linalg.norm(p - q) / np.linalg.norm(r)
+                         for p, q, r in zip(a, b, ref_f32)])
+
+    assert rel(port_f32, ref_f32).max() <= 1e-5
+    port_floor, ref_floor = rel(port_bf16, port_f32), rel(ref_bf16, ref_f32)
+    assert port_floor.max() <= 2e-2, port_floor.max()
+    gap = rel(port_bf16, ref_bf16)
+    # the leaves past the parity bound: there the port's own rounding is
+    # at most a fifth of the gap, so at least four fifths of it is
+    # avd_tpu's
+    past = gap > 3e-2
+    assert past.any(), gap.max()
+    assert np.all(port_floor[past] <= 0.2 * gap[past]), \
+        (gap[past], port_floor[past])
