@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from avd_tpu_torch.ops.kernels import _build
+from avd_tpu_torch.ops.kernels import _build, _launches
 
 LAUNCHES = 0  # kernel launches; raised only where a kernel is launched
 VARIANT_LAUNCHES = {"mma": 0, "general": 0}  # the same, by kernel
@@ -63,34 +63,34 @@ def variant(T: int, D: int) -> str:
     return "mma" if T <= MMA_MAX_TOKENS else "general"
 
 
-_fns = None
+_fns: dict = {}
+
+
+def _bind():
+    lib = _build.load("attention")
+    strides = ctypes.POINTER(ctypes.c_int64)
+    fns = {"mma": lib.avd_mha_mma, "general": lib.avd_mha_general}
+    for fn in fns.values():
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [strides] * 4 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    fns["smem"] = lib.avd_mha_smem_bytes
+    fns["smem"].argtypes = [ctypes.c_int, ctypes.c_int]
+    fns["smem"].restype = ctypes.c_int64
+    if lib.avd_mha_mma_max_tokens() != MMA_MAX_TOKENS:
+        raise RuntimeError("attention.cu and MMA_MAX_TOKENS disagree")
+    return fns
 
 
 def _lib():
     """{"mma": fn, "general": fn, "smem": fn} of the built library."""
-    global _fns
-    if _fns is None:
-        lib = _build.load("attention")
-        strides = ctypes.POINTER(ctypes.c_int64)
-        fns = {"mma": lib.avd_mha_mma, "general": lib.avd_mha_general}
-        for fn in fns.values():
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                           + [strides] * 4 + [ctypes.c_float, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        fns["smem"] = lib.avd_mha_smem_bytes
-        fns["smem"].argtypes = [ctypes.c_int, ctypes.c_int]
-        fns["smem"].restype = ctypes.c_int64
-        if lib.avd_mha_mma_max_tokens() != MMA_MAX_TOKENS:
-            raise RuntimeError("attention.cu and MMA_MAX_TOKENS disagree")
-        _fns = fns
-    return _fns
+    return _launches.symbol(_fns, "attention", _bind)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             token_axis: int, head_axis: int) -> torch.Tensor:
     """Check q, k, v (4-D, batch first, head dim last, tokens and heads on
     the named axes), launch the kernel and return o in the same layout."""
-    global LAUNCHES
     for name, x in zip("qkv", (q, k, v)):
         if x.device.type != "cuda":
             raise ValueError(f"{name} must lie on a CUDA device, not "
@@ -122,8 +122,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"attention kernel ({which}) launch failed: "
                            f"cudaError {err}")
-    LAUNCHES += 1
-    VARIANT_LAUNCHES[which] += 1
+    _launches.count(globals(), "VARIANT_LAUNCHES", which)
     return o
 
 

@@ -17,7 +17,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from avd_tpu_torch.ops.kernels import _build
+from avd_tpu_torch.ops.kernels import _build, _launches
 
 LAUNCHES = 0  # kernel launches; raised only where the kernel is launched
 # the same launches by the type of M
@@ -61,15 +61,16 @@ _SYMBOLS = {torch.float32: "avd_blur_solve",
 _fns: dict = {}
 
 
-def _lib(dtype: torch.dtype):
-    fn = _fns.get(dtype)
-    if fn is None:
-        fn = getattr(_build.load("blur_solve"), _SYMBOLS[dtype])
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns[dtype] = fn
+def _bind(dtype: torch.dtype):
+    fn = getattr(_build.load("blur_solve"), _SYMBOLS[dtype])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
+
+
+def _lib(dtype: torch.dtype):
+    return _launches.symbol(_fns, dtype, lambda: _bind(dtype))
 
 
 def box_blur_solve(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
@@ -77,7 +78,6 @@ def box_blur_solve(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
 
     A CPU tensor takes ``box_blur_solve_plain``; a CUDA tensor launches the
     kernel or raises."""
-    global LAUNCHES
     if m.device.type == "cpu":
         return box_blur_solve_plain(m, winsize)
     _build.check_cuda(m, "M", tuple(_SYMBOLS))
@@ -94,6 +94,6 @@ def box_blur_solve(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
                  torch.cuda.current_stream(m.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"blur+solve kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    DTYPE_LAUNCHES[str(m.dtype).replace("torch.", "")] += 1
+    _launches.count(globals(), "DTYPE_LAUNCHES",
+                    str(m.dtype).replace("torch.", ""))
     return out

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from avd_tpu_torch.ops.kernels import _build
+from avd_tpu_torch.ops.kernels import _build, _launches
 from avd_tpu_torch.ops.kernels import blur_solve as blur_solve_k
 from avd_tpu_torch.ops.kernels import warp as warp_k
 
@@ -43,18 +43,19 @@ def solve_iteration_plain(R0: torch.Tensor, R1: torch.Tensor,
     return blur_solve_k.box_blur_solve_plain(M, winsize)
 
 
-_fn = None
+_fns: dict = {}
+
+
+def _bind():
+    fn = _build.load("flow_iter").avd_flow_iter
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+        [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _lib():
-    global _fn
-    if _fn is None:
-        fn = _build.load("flow_iter").avd_flow_iter
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-            [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+    return _launches.symbol(_fns, "avd_flow_iter", _bind)
 
 
 def solve_iteration(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
@@ -64,7 +65,6 @@ def solve_iteration(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
 
     CPU tensors take ``solve_iteration_plain``; CUDA tensors launch the
     kernel or raise."""
-    global LAUNCHES
     B, C, H, W = R0.shape
     if C != _C or R1.shape != R0.shape or tuple(flow.shape) != (B, 2, H, W):
         raise ValueError(f"shapes R0 {tuple(R0.shape)} R1 {tuple(R1.shape)} "
@@ -93,5 +93,5 @@ def solve_iteration(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused iteration kernel launch failed: "
                            f"cudaError {err}")
-    LAUNCHES += 1
+    _launches.count(globals())
     return out

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from avd_tpu_torch.ops.kernels import _build
+from avd_tpu_torch.ops.kernels import _build, _launches
 
 LAUNCHES = 0  # kernel launches; raised only where the kernel is launched
 # the same launches by the type of src
@@ -58,16 +58,16 @@ _SYMBOLS = {torch.float32: "avd_warp_bilinear",
 _fns: dict = {}
 
 
-def _lib(dtype: torch.dtype):
-    fn = _fns.get(dtype)
-    if fn is None:
-        fn = getattr(_build.load("warp"), _SYMBOLS[dtype])
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns[dtype] = fn
+def _bind(dtype: torch.dtype):
+    fn = getattr(_build.load("warp"), _SYMBOLS[dtype])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
+
+
+def _lib(dtype: torch.dtype):
+    return _launches.symbol(_fns, dtype, lambda: _bind(dtype))
 
 
 def warp_bilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -76,7 +76,6 @@ def warp_bilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
     A CPU tensor takes ``warp_bilinear_plain``; a CUDA tensor launches the
     kernel or raises."""
-    global LAUNCHES
     if src.device.type == "cpu" and flow.device.type == "cpu":
         return warp_bilinear_plain(src, flow)
     _build.check_cuda(src, "src", tuple(_SYMBOLS))
@@ -96,6 +95,6 @@ def warp_bilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
                  torch.cuda.current_stream(src.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"warp kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    DTYPE_LAUNCHES[str(src.dtype).replace("torch.", "")] += 1
+    _launches.count(globals(), "DTYPE_LAUNCHES",
+                    str(src.dtype).replace("torch.", ""))
     return out

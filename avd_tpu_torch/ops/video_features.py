@@ -24,7 +24,10 @@ Two preprocessing placements (``AVD_PREP``, ``config.prep_mode``):
 Clips longer than the chunk stream through windows with a one-frame
 lead-in; tails round up to quarter-chunk buckets.  Window results stay on
 the device and all of them come back in one device→host fetch at the end,
-so host work on window k+1 overlaps the device work of window k.  A
+so host work on window k+1 overlaps the device work of window k.  In
+host-prep mode each window's copy and launches run on the dispatch
+thread (``_dispatch_pool``), so decode and host prep of the next chunk
+also overlap the enqueue of this one.  A
 caller that passes a batcher to ``compute_features_streaming`` (serving
 with ``AVD_BATCH_WINDOW_MS > 0``, ``serve/batching.py``) has every window
 run there instead: the batcher stacks the full host-prep windows of
@@ -41,6 +44,8 @@ the host in float64 (``oracle/video_ref.summarize``).
 
 from __future__ import annotations
 
+import concurrent.futures
+import functools
 import os
 from typing import Dict
 
@@ -204,6 +209,35 @@ def run_prep_window(w320: np.ndarray, w32: np.ndarray,
     return run_prep_windows(w320[None], w32[None], device, cfg)[0]
 
 
+@functools.lru_cache(maxsize=1)
+def _dispatch_pool():
+    """The dispatch stage: one thread per process, named ``avd-dispatch``
+    and made at first use (never at import).  It enqueues each host-prep
+    window (the pinned host→device copy and the window's launches) while
+    the streaming thread decodes and preps the next chunk; the C++ host
+    prep runs through ctypes and releases the interpreter lock meanwhile.
+
+    One thread, where ``avd_tpu``'s pool has ``AVD_DISPATCH_WORKERS``
+    (there, several host→device puts at once): a window's enqueue is
+    about 933 torch calls, each of which drops and takes back the
+    interpreter lock, so enqueuers running at once hand it to each other
+    on every call and each window's enqueue stretches several-fold on the
+    H100 (PERF.md §6).  The port reads no such setting."""
+    return concurrent.futures.ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix="avd-dispatch")
+
+
+def _enqueue_prep_window(w320: np.ndarray, w32: np.ndarray,
+                         device: torch.device, cfg, stream) -> torch.Tensor:
+    """``run_prep_window`` on the dispatch thread.  CUDA's current device
+    and stream belong to each host thread, so the window is enqueued on
+    the caller's (``stream``; None on the CPU)."""
+    if stream is None:
+        return run_prep_window(w320, w32, device, cfg)
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        return run_prep_window(w320, w32, device, cfg)
+
+
 def run_window(window_gray_u8: np.ndarray, device: torch.device, cfg=None):
     """Enqueue one device-prep window ([N, H, W] uint8 gray): one u8 copy,
     then ``_feature_body``.  Returns (tex, ham, fmean, fvar) on the
@@ -271,16 +305,18 @@ def _pad_window(window: np.ndarray, target: int) -> np.ndarray:
 
 def _fetch_windows(pend, with_tex: bool, sinks) -> None:
     """The one device→host fetch: every window's result vector at once,
-    then split into the feature lists.  ``pend`` holds (vector, valid,
-    is_first, window length); a vector is [tex ‖] ham ‖ fmean ‖ fvar,
-    either on the device or, from the cross-request batcher, a future of
-    a host array (resolved here, after the device vectors are fetched)."""
-    on_device = [p[0] for p in pend if isinstance(p[0], torch.Tensor)]
+    then split into the feature lists.  ``pend`` holds (vector, kind,
+    valid, is_first, window length); a vector is [tex ‖] ham ‖ fmean ‖
+    fvar, and its kind says where it is: ``"device"`` a device tensor,
+    ``"pool"`` a dispatch future of one (resolved first, so its window
+    comes back in the one copy too), ``"host"`` a future of a host array
+    from the cross-request batcher (resolved after the fetch)."""
+    on_device = [vec.result() if kind == "pool" else vec
+                 for vec, kind, *_ in pend if kind != "host"]
     fetched = iter(torch.cat(on_device).cpu().split(
         [v.numel() for v in on_device]) if on_device else ())
-    for vec, valid, is_first, target in pend:
-        vec = next(fetched).numpy() if isinstance(vec, torch.Tensor) \
-            else vec.result()
+    for vec, kind, valid, is_first, target in pend:
+        vec = vec.result() if kind == "host" else next(fetched).numpy()
         k = target - 1
         tex = None
         if with_tex:
@@ -374,14 +410,19 @@ def compute_features_streaming(chunk_iter, device=None,
     mode the tail window takes a bucket here and the full chunk there.
     ``batcher`` (a ``serve.batching.WindowBatcher`` or None) runs every
     window instead of this thread: host-prep windows through
-    ``submit_prep``, device-prep ones through ``submit``.
+    ``submit_prep``, device-prep ones through ``submit``.  Without one,
+    host-prep windows are enqueued by ``_dispatch_pool``'s thread on
+    this thread's device and stream; device-prep ones on this thread.
+    An exception on a dispatch thread is raised here, once every window
+    of the call has finished.
     """
-    dev = device_mod.resolve(device)
+    dev = device_mod.pinned(device)
     cfg = config_mod.get_config()
     host_mode = cfg.prep_mode == "host"
     chunk = _DEFAULT_CHUNK if host_mode else None
-    pend: list = []      # (device vector or batcher future, valid,
-    #                       is_first, target)
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    pend: list = []      # (vector, kind, valid, is_first, target):
+    #                       _fetch_windows' kinds
     tex_parts: list = []
     held = None          # host planes or gray not yet dispatched
     prev_last = None     # lead-in frames of the next window
@@ -398,47 +439,54 @@ def compute_features_streaming(chunk_iter, device=None,
         if batcher is not None:
             # a future of the host vector: full host-prep windows of
             # concurrent requests share one stacked flow
-            vec = (batcher.submit_prep(*windows, device=dev) if host_mode
-                   else batcher.submit(windows[0], dev))
+            vec, kind = (batcher.submit_prep(*windows, device=dev)
+                         if host_mode else batcher.submit(windows[0], dev)
+                         ), "host"
         elif host_mode:
-            vec = run_prep_window(*windows, device=dev, cfg=cfg)
+            vec, kind = _dispatch_pool().submit(
+                _enqueue_prep_window, *windows, dev, cfg, stream), "pool"
         else:
-            vec = _device_window_vector(run_window(windows[0], dev, cfg))
-        pend.append((vec, valid, prev_last is None, target))
+            vec, kind = _device_window_vector(
+                run_window(windows[0], dev, cfg)), "device"
+        pend.append((vec, kind, valid, prev_last is None, target))
         prev_last = tuple(p[-1] for p in parts)
 
-    for frames in chunk_iter:
-        if frames.shape[0] == 0:
-            continue
-        if host_mode:
-            s320, s32, tex = host_prep_mod.host_prep(frames,
-                                                     native=cfg.native)
-            tex_parts.append(tex)
-            parts = (s320, s32)
-        else:
-            gray = _to_gray_host(frames, cfg.native)
-            if chunk is None:
-                chunk = _chunk_size(*gray.shape[1:3])
-            parts = (gray,)
-        if held is not None:
-            parts = tuple(np.concatenate([h_, p])
-                          for h_, p in zip(held, parts))
-            held = None
-        while parts[0].shape[0] >= chunk:
-            dispatch(tuple(p[:chunk] for p in parts))
-            n_total += chunk
-            parts = tuple(p[chunk:] for p in parts)
-        held = parts if parts[0].shape[0] else None
-    if held is not None and held[0].shape[0]:
-        n_total += held[0].shape[0]
-        dispatch(held)
+    try:
+        for frames in chunk_iter:
+            if frames.shape[0] == 0:
+                continue
+            if host_mode:
+                s320, s32, tex = host_prep_mod.host_prep(frames,
+                                                         native=cfg.native)
+                tex_parts.append(tex)
+                parts = (s320, s32)
+            else:
+                gray = _to_gray_host(frames, cfg.native)
+                if chunk is None:
+                    chunk = _chunk_size(*gray.shape[1:3])
+                parts = (gray,)
+            if held is not None:
+                parts = tuple(np.concatenate([h_, p])
+                              for h_, p in zip(held, parts))
+                held = None
+            while parts[0].shape[0] >= chunk:
+                dispatch(tuple(p[:chunk] for p in parts))
+                n_total += chunk
+                parts = tuple(p[chunk:] for p in parts)
+            held = parts if parts[0].shape[0] else None
+        if held is not None and held[0].shape[0]:
+            n_total += held[0].shape[0]
+            dispatch(held)
 
-    feats = {"dup": 0, "total": n_total, "flow_means": [], "flow_vars": [],
-             "textures": [], "timeline_ai": []}
-    if n_total == 0:
-        return feats
-    sinks = ([], [], [], [])
-    _fetch_windows(pend, not host_mode, sinks)
+        feats = {"dup": 0, "total": n_total, "flow_means": [],
+                 "flow_vars": [], "textures": [], "timeline_ai": []}
+        if n_total == 0:
+            return feats
+        sinks = ([], [], [], [])
+        _fetch_windows(pend, not host_mode, sinks)
+    finally:
+        # no window of this call outlives it, a failed call's included
+        concurrent.futures.wait([p[0] for p in pend if p[1] == "pool"])
     mark_device_warm()
     if host_mode:
         sinks = (np.concatenate(tex_parts).tolist(),) + sinks[1:]
@@ -552,7 +600,7 @@ def compute_features(frames: np.ndarray, device=None) -> Dict:
             np.concatenate([lead[None], gray[start:start + valid]]),
             chunk + 1)
         pend.append((_device_window_vector(run_window(window, dev, cfg)),
-                     valid, start == 0, chunk + 1))
+                     "device", valid, start == 0, chunk + 1))
     sinks = ([], [], [], [])
     _fetch_windows(pend, True, sinks)
     return _assemble(feats, *sinks)

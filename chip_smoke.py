@@ -20,12 +20,23 @@ Phases, in order; any failure exits non-zero before the result line:
    through ``pipeline.analyze_decoded`` on the card; the launch counters
    must rise by 48 each (4 windows × 4 levels × 3 rounds); the envelope
    must pass ``schema.validate``; then host-prep, device and end-to-end
-   times;
+   times (the windows enqueued by the dispatch thread);
+5b. dispatch: the warm ``analyze_batch`` and the device pass (host prep
+   precomputed) in the inline order (a synchronous stand-in for the
+   pool) and through the dispatch pool's one thread, interleaved over 5
+   rounds: best and median, each window's enqueue ms, the pass's peak
+   device memory and launches (warp and blur+solve 48 each), the
+   features and envelopes bit-equal to the inline order's; then one
+   packed 49-frame window's pinned
+   host→device copy beside its enqueue and device time
+   (``chiprun_out/dispatch.json``);
 6. card vs CPU: a 25-frame 360×640 clip through the port on both (flow
    mean rtol 1e-3, |Δai_score| <= 1e-3, the same label);
 7. profile: ``torch.profiler`` over the main path's device work (host prep
-   precomputed): the device-busy time and the card's idle share of the
-   end-to-end run, with the table of kernels by device time written to
+   precomputed), once in each dispatch order: the device-busy time and
+   the card's idle share of the end-to-end run, and of each order's best
+   run against its own busy time, with the pool's table of kernels by
+   device time written to
    ``chiprun_out/torch_profile_window.txt``;
 8. mha: the attention kernels against their plain version at the
    detector's shapes ([256,6,197,64], ``moe_small``'s [256,4,17,64],
@@ -90,6 +101,14 @@ Phases, in order; any failure exits non-zero before the result line:
     present, a 1080p mp4 of the 145 frames written with it (2 fps, every
     frame sampled) through ``analyze_path`` with the detector, streaming
     against ``AVD_STREAM=0`` (timelines equal within 1e-6 and 2e-2);
+16b. dispatch on the streaming analyzer: that mp4 through
+    ``analyzers.video.analyze`` (decode in chunks of 32) in the inline
+    order and through the pool, interleaved over 3 rounds, with the
+    detector off, on (scored after the stream) and on in slabs of 64
+    (scored on the streaming thread beside the dispatch thread's
+    enqueue): best and median s, each window's enqueue ms, summaries
+    bit-equal, detector timelines within 2e-2, no restart on the batch
+    path;
 17. the streaming video analyzer (``analyzers.video.analyze``) with decode
     replaced by an in-memory source of the 145 frames in chunks of 32 (a
     stand-in for decode, labelled so), ``AVD_DETECTOR=1 AVD_ATTN_FUSED=1``
@@ -232,6 +251,8 @@ and a CUDA device; it imports nothing of ``jax`` or ``avd_tpu``.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import json
 import os
 import statistics
@@ -616,6 +637,175 @@ def phase_main_path():
     return launches, frames, fb, best
 
 
+# the inline order (each window enqueued on the streaming thread) and the
+# shipped dispatch stage (one avd-dispatch thread)
+DISPATCH_ORDERS = ("inline", "pool")
+DISPATCH_ROUNDS = 5           # interleaved rounds of the orders
+STREAM_ROUNDS = 3             # the same, on the streaming analyzer (16b)
+PACKED_REPS = 10              # host-clocked reps of the packed window
+
+
+class _InlinePool:
+    """The inline order, a stand-in for the dispatch pool: each
+    ``submit`` runs at once on the streaming thread."""
+
+    def submit(self, fn, *args):
+        f = concurrent.futures.Future()
+        f.set_result(fn(*args))
+        return f
+
+
+@contextlib.contextmanager
+def dispatch_order(order):
+    """``video_features``' dispatch stage as ``order``: ``"pool"`` the
+    shipped one, ``"inline"`` the stand-in above."""
+    from avd_tpu_torch.ops import video_features
+    if order == "pool":
+        yield
+        return
+    with mock.patch.object(video_features, "_dispatch_pool", _InlinePool):
+        yield
+
+
+@contextlib.contextmanager
+def timed_enqueues(into):
+    """Append each window's enqueue (host ms of ``run_prep_window`` on the
+    thread that ran it, without a wait) to ``into``."""
+    from avd_tpu_torch.ops import video_features
+    orig = video_features.run_prep_window
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        into.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with mock.patch.object(video_features, "run_prep_window", timed):
+        yield
+
+
+def _spread(xs):
+    return {"best": min(xs), "median": statistics.median(xs), "runs": xs}
+
+
+def phase_dispatch(frames, fb, card):
+    """The dispatch stage both ways, interleaved in one process (the
+    order rotates each round): the inline order and the shipped pool of
+    one thread.  Each run: the warm ``analyze_batch``, then the device
+    pass with the host prep precomputed, its peak device memory above
+    what was allocated before it, its launches and each window's enqueue
+    ms.  Every run's features and envelope equal the inline order's bit
+    for bit; warp and blur+solve launch 48 times in each.  Then one
+    packed 49-frame window: its pinned host→device copy (device ms), the
+    pinning (host ms), the window's enqueue (host ms, ``run_prep_window``
+    without a wait) and its device time."""
+    import torch
+    from avd_tpu_torch.analyzers import video as video_an
+    from avd_tpu_torch.ops import host_prep, video_features
+    cuda = torch.device(DEV)
+    chunk = video_features._DEFAULT_CHUNK
+    prepped = [host_prep.host_prep(frames[i:i + chunk])
+               for i in range(0, FRAMES_MAIN, chunk)]
+    pool = video_features._dispatch_pool()
+    check(pool._max_workers == 1,
+          f"dispatch: a pool of {pool._max_workers} threads, expected 1")
+    runs = {o: {"analyze_batch_s": [], "device_pass_s": [], "enqueue_ms": [],
+                "peak_mib": [], "launches": []} for o in DISPATCH_ORDERS}
+    feats, envs = {}, {}
+    for r in range(DISPATCH_ROUNDS):
+        k = r % len(DISPATCH_ORDERS)
+        for order in DISPATCH_ORDERS[k:] + DISPATCH_ORDERS[:k]:
+            row = runs[order]
+            with dispatch_order(order):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                env = video_an.analyze_batch(fb, device=cuda)
+                row["analyze_batch_s"].append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counters()
+                with timed_enqueues(row["enqueue_ms"]):
+                    t0 = time.perf_counter()
+                    f, _ = _device_pass(frames, prepped)
+                    row["device_pass_s"].append(time.perf_counter() - t0)
+                row["peak_mib"].append(
+                    (torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+                n = _counters()
+                row["launches"].append(n)
+            feats.setdefault(order, f)  # round 0 starts with "inline"
+            envs.setdefault(order, env)
+            check(f == feats["inline"] and env == envs["inline"],
+                  f"dispatch {order}: the features or the analyze_batch "
+                  "result differ from the inline order's")
+            for name in ("warp_bilinear", "box_blur_solve"):
+                check(n[name] == 48 and n[f"{name}_bf16"] == 0,
+                      f"dispatch {order}: {name} launched {n[name]} times "
+                      "in the device pass, expected 48 on float32")
+    out = {"card": card, "rounds": DISPATCH_ROUNDS, "orders": {}}
+    for order in DISPATCH_ORDERS:
+        row = runs[order]
+        out["orders"][order] = o = {
+            "analyze_batch_s": _spread(row["analyze_batch_s"]),
+            "device_pass_s": _spread(row["device_pass_s"]),
+            "enqueue_ms": _spread(row["enqueue_ms"]),
+            "peak_mib": max(row["peak_mib"]),
+            "launches": row["launches"][0]}
+        a, d, e = o["analyze_batch_s"], o["device_pass_s"], o["enqueue_ms"]
+        log(f"dispatch {order}: analyze_batch best {a['best']:.4f} s "
+            f"median {a['median']:.4f} s ({FRAMES_MAIN / a['best']:.2f} "
+            f"frames/s); device pass best {d['best']:.4f} s median "
+            f"{d['median']:.4f} s, a window's enqueue median "
+            f"{e['median']:.2f} ms (host, {len(row['enqueue_ms'])} windows); "
+            f"peak device memory of the pass {o['peak_mib']:.1f} MiB above "
+            f"its start; launches warp {o['launches']['warp_bilinear']}, "
+            f"blur+solve {o['launches']['box_blur_solve']} (every run)")
+    log(f"dispatch: the features and envelopes of {len(DISPATCH_ORDERS)} "
+        "orders are bit-equal")
+
+    # one packed full window: the copy that AVD_H2D_DELTA would shrink
+    w320 = np.concatenate([prepped[0][0][:1], prepped[0][0]])
+    w32 = np.concatenate([prepped[0][1][:1], prepped[0][1]])
+    host = torch.from_numpy(np.concatenate([w320.reshape(-1),
+                                            w32.reshape(-1)]))
+    pin = []
+    for _ in range(PACKED_REPS):
+        t0 = time.perf_counter()
+        host.pin_memory()
+        pin.append((time.perf_counter() - t0) * 1e3)
+    pinned = host.pin_memory()
+    copy_ms = time_ms(lambda: pinned.to(cuda, non_blocking=True))
+    enq, win = [], []
+    for _ in range(PACKED_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video_features.run_prep_window(w320, w32, cuda)
+        enq.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    for _ in range(PACKED_REPS // 2):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(200_000_000)  # covers the window's enqueue
+        e0.record()
+        video_features.run_prep_window(w320, w32, cuda)
+        e1.record()
+        e1.synchronize()
+        win.append(e0.elapsed_time(e1))
+    nbytes = host.numel()
+    out["packed_window"] = {
+        "bytes": nbytes, "pinned_h2d_ms": copy_ms,
+        "h2d_gb_per_s": nbytes / copy_ms / 1e6,
+        "pin_host_ms": _spread(pin), "enqueue_host_ms": _spread(enq),
+        "window_device_ms": _spread(win)}
+    log(f"packed window: {nbytes} B ({w320.shape[0]} x (320² + 32²) u8); "
+        f"pinned host→device copy {copy_ms:.4f} ms "
+        f"({nbytes / copy_ms / 1e6:.2f} GB/s; device, median of 25); "
+        f"pinning {statistics.median(pin):.4f} ms (host); the window's "
+        f"enqueue {statistics.median(enq):.4f} ms (host, median of "
+        f"{PACKED_REPS}, best {min(enq):.4f}); its device time "
+        f"{statistics.median(win):.4f} ms (median of {len(win)})")
+    return out
+
+
 def phase_card_vs_cpu():
     import torch
     from avd_tpu_torch import pipeline
@@ -701,11 +891,19 @@ def _device_pass(frames, prepped=None):
     return feats, prepped
 
 
-def phase_profile(frames, e2e_s):
-    """torch.profiler over the device work of the main path's windows;
-    the card's idle share is 1 - device busy / end-to-end wall time."""
+def phase_profile(frames, e2e_s, dispatch):
+    """torch.profiler over the device work of the main path's windows,
+    once in each dispatch order; the card's idle share is 1 - device busy
+    / end-to-end wall time: for the main path's run (the shipped pool)
+    and for each order's best ``analyze_batch`` against that order's own
+    busy time (``chiprun_out/dispatch.json``)."""
     _, prepped = _device_pass(frames)
-    busy_ms, _, avgs = device_profile(lambda: _device_pass(frames, prepped))
+    prof = {}
+    for order in DISPATCH_ORDERS:
+        with dispatch_order(order):
+            prof[order] = device_profile(
+                lambda: _device_pass(frames, prepped))
+    busy_ms, _, avgs = prof["pool"]
     os.makedirs("chiprun_out", exist_ok=True)
     path = os.path.join("chiprun_out", "torch_profile_window.txt")
     with open(path, "w") as f:
@@ -713,12 +911,26 @@ def phase_profile(frames, e2e_s):
     idle = 1 - busy_ms / 1e3 / e2e_s
     log(f"profile: device busy {busy_ms:.3f} ms per {FRAMES_MAIN}-frame "
         f"clip; idle share {idle:.4f} of the "
-        f"{e2e_s:.3f} s end-to-end run; table in {path}")
-    for name in ("blur_solve_kernel", "warp_bilinear_kernel"):
-        ms, n = _kernel_ms(avgs, name)
-        check(n == 48, f"the profile holds {n} launches of {name}")
-        log(f"profile: {name} {ms:.3f} ms in {n} launches "
-            f"({100 * ms / busy_ms:.2f} % of the device-busy time)")
+        f"{e2e_s:.3f} s end-to-end run (the dispatch pool); table in {path}")
+    dispatch["idle_share_main_path"] = idle
+    for order, row in dispatch["orders"].items():
+        row["busy_ms"] = prof[order][0]
+        row["idle_share"] = \
+            1 - row["busy_ms"] / 1e3 / row["analyze_batch_s"]["best"]
+    log("profile: each dispatch order's device busy and the idle share of "
+        "its best analyze_batch: " + ", ".join(
+            f"{o} {r['busy_ms']:.3f} ms, {r['idle_share']:.4f}"
+            for o, r in dispatch["orders"].items()))
+    with open(os.path.join("chiprun_out", "dispatch.json"), "w") as f:
+        json.dump(dispatch, f, indent=1)
+    for order in DISPATCH_ORDERS:
+        for name in ("blur_solve_kernel", "warp_bilinear_kernel"):
+            ms, n = _kernel_ms(prof[order][2], name)
+            check(n == 48, f"the {order} profile holds {n} launches of "
+                  f"{name}")
+            if order == "pool":
+                log(f"profile: {name} {ms:.3f} ms in {n} launches "
+                    f"({100 * ms / busy_ms:.2f} % of the device-busy time)")
     return busy_ms
 
 
@@ -1598,6 +1810,96 @@ def phase_mp4_1080p(frames, fps=2.0):
         f"timeline max |Δ| {d_tl:.3g}, detector max |Δ| {d_det:.3g}; label "
         f"{st['result']['label']} ai_score {st['result']['ai_score']}")
     return min(secs["1"])
+
+
+# the detector in phase 16b: off; on (the default slab of 256 frames: the
+# 145-frame clip is scored after the stream); on in slabs of 64 (scored on
+# the streaming thread mid-stream, beside the dispatch thread's enqueue)
+STREAM_DETECTOR = {"off": {}, "on": {"AVD_DETECTOR": "1"},
+                   "on, slabs of 64": {"AVD_DETECTOR": "1",
+                                       "AVD_DETECTOR_SLAB": str(SLAB)}}
+
+
+def phase_dispatch_streaming(dispatch):
+    """The streaming analyzer as serving runs it (``analyzers.video.
+    analyze``: the 1080p mp4 decoded in chunks of 32, the windows through
+    the dispatch stage) in both dispatch orders, interleaved, for each
+    detector setting of ``STREAM_DETECTOR``: best and median s and each
+    window's enqueue ms.  The batch path's restart is patched to fail, so
+    every run streamed; the orders' heuristic summaries are bit-equal,
+    their detector timelines within 2e-2; warp and blur+solve launch 48
+    times a run (``chiprun_out/dispatch.json``)."""
+    import torch
+    from avd_tpu_torch.analyzers import video as video_an
+    from avd_tpu_torch.ingest import probe
+    cuda = torch.device(DEV)
+    meta = probe.probe_basic_meta(MP4_1080P)
+    names = ("AVD_DETECTOR", "AVD_DETECTOR_SLAB", "AVD_DETECTOR_PRESET",
+             "AVD_DETECTOR_CKPT", "AVD_DETECTOR_BLEND", "AVD_ATTN_FUSED",
+             "AVD_STREAM")
+
+    def no_restart(*_, **__):
+        raise PhaseError("the streaming analyzer restarted on the batch path")
+
+    rows = {}
+    try:
+        for mode, env in STREAM_DETECTOR.items():
+            _set_env(**{**dict.fromkeys(names), **env})
+            res = {}
+            with mock.patch.object(video_an, "analyze_batch", no_restart):
+                video_an.analyze(MP4_1080P, dict(meta), device=cuda)  # warm
+                for r in range(STREAM_ROUNDS):
+                    k = r % len(DISPATCH_ORDERS)
+                    for order in DISPATCH_ORDERS[k:] + DISPATCH_ORDERS[:k]:
+                        row = rows.setdefault(mode, {}).setdefault(
+                            order, {"s": [], "enqueue_ms": []})
+                        _reset_counters()
+                        with dispatch_order(order), \
+                                timed_enqueues(row["enqueue_ms"]):
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            out = video_an.analyze(MP4_1080P, dict(meta),
+                                                   device=cuda)
+                            torch.cuda.synchronize()
+                            row["s"].append(time.perf_counter() - t0)
+                        n = _counters()
+                        check(n["warp_bilinear"] == n["box_blur_solve"] == 48,
+                              f"streaming {mode} {order}: launches {n}")
+                        check("detector_error" not in out,
+                              f"streaming {mode} {order}: detector_error "
+                              f"{out.get('detector_error')}")
+                        res.setdefault(order, out)
+            a, b = res["inline"], res["pool"]
+            check(a["summary"] == b["summary"],
+                  f"streaming {mode}: the summaries of the orders differ")
+            d_det = 0.0
+            if env:
+                check(len(a["detector"]["timeline"]) == FRAMES_MAIN
+                      and len(b["detector"]["timeline"]) == FRAMES_MAIN,
+                      f"streaming {mode}: detector timeline lengths")
+                d_det = float(np.max(np.abs(np.subtract(
+                    a["detector"]["timeline"], b["detector"]["timeline"]))))
+                check(d_det <= 2e-2, f"streaming {mode}: detector timeline "
+                      f"inline vs pool |Δ| {d_det}")
+            else:
+                check(a == b, f"streaming {mode}: the orders' results differ")
+            for order, row in rows[mode].items():
+                row["s"], row["enqueue_ms"] = (_spread(row["s"]),
+                                               _spread(row["enqueue_ms"]))
+                best = row["s"]["best"]
+                log(f"dispatch streaming, detector {mode}, {order}: best "
+                    f"{best:.4f} s median {row['s']['median']:.4f} s "
+                    f"({FRAMES_MAIN / best:.2f} frames/s); a window's "
+                    f"enqueue median "
+                    f"{row['enqueue_ms']['median']:.2f} ms (host)")
+            log(f"dispatch streaming, detector {mode}: summaries bit-equal, "
+                f"detector timeline inline vs pool max |Δ| {d_det:.3g}")
+    finally:
+        _set_env(**dict.fromkeys(names))
+    dispatch["streaming"] = {"rounds": STREAM_ROUNDS, "clip": MP4_1080P,
+                             "detector": rows}
+    with open(os.path.join("chiprun_out", "dispatch.json"), "w") as f:
+        json.dump(dispatch, f, indent=1)
 
 
 def phase_streaming(frames, fb):
@@ -3609,8 +3911,9 @@ def main():
         warp_rows, warp_err = phase_warp(gen)
         blur_rows, blur_err = phase_blur_solve(gen)
         launches, frames, fb, e2e_s = phase_main_path()
+        dispatch = phase_dispatch(frames, fb, card)
         phase_card_vs_cpu()
-        busy_ms = phase_profile(frames, e2e_s)
+        busy_ms = phase_profile(frames, e2e_s, dispatch)
         mha_rows, mha_err = phase_mha(gen)
         iter_rows, iter_err = phase_flow_iter(gen)
         det_launches = phase_detector(frames, fb)
@@ -3621,8 +3924,8 @@ def main():
         bf16_launches = phase_modes(frames)
         wav_path, routes, wav_s = phase_wav_path()
         mp4_s = phase_mp4_path(routes, wav_path)
-        if routes["cv2"]:
-            phase_mp4_1080p(frames)
+        if routes["cv2"] and phase_mp4_1080p(frames) is not None:
+            phase_dispatch_streaming(dispatch)
         stream_launches = phase_streaming(frames, fb)
         cli_s = phase_cli(wav_path)
         phase_fault3(frames)
