@@ -1,6 +1,7 @@
 # Developer entry points (see CLAUDE.md for environment notes).
 
-.PHONY: test test-fast bench bench-latency serve native clean
+.PHONY: test test-fast bench bench-latency serve native clean \
+	serve-torch test-torch smoke
 
 test:
 	python -m pytest tests/ -q
@@ -24,6 +25,16 @@ serve:
 
 native:
 	$(MAKE) -C avd_tpu/native/src
+
+# the PyTorch/CUDA port (avd_tpu_torch)
+serve-torch:
+	python -m avd_tpu_torch.serve.master --device cuda
+
+test-torch:
+	python -m pytest tests/test_torch_*.py -q
+
+smoke:
+	python3 chip_smoke.py
 
 clean:
 	$(MAKE) -C avd_tpu/native/src clean

@@ -242,7 +242,25 @@ Phases, in order; any failure exits non-zero before the result line:
     no group) with the same uploads; in (b) and (c) a killed follower
     makes the worker exit and the master respawn a group that serves;
     SIGTERM leaves no process of any group
-    (``chiprun_out/served_groups.json``, logs ``serve_group_*.log``).
+    (``chiprun_out/served_groups.json``, logs ``serve_group_*.log``);
+35. real media at full width: the trainer's directory loader on this
+    host (4 draws of 64 at 224 px from ``tests/data/corpus_v1``: ms and
+    sha256 of each), then its ``--data`` branch fine-tuning the shipped
+    ``detector_full`` with its recipe (phase 27's ``train()`` call, the
+    corpus in place of the pool) for 60 host-fed steps: finite losses,
+    the first step's loss card against CPU on the same first batch
+    (within 1e-4 with the forward's bf16 casts made f32; as trained,
+    within 1e-4 or what bf16 rounding moves the CPU's loss by, whichever
+    is larger), step ms, train frames/s, peak memory, the share of a step
+    spent in ``next(batches)`` (host clock) and the card's idle share of
+    5 such steps under the profiler; the trained parameters' accuracy on
+    64 corpus draws (seed 123) printed against the CPU test's 0.85; the
+    trained directory served through ``AVD_DETECTOR_CKPT`` with
+    ``AVD_ATTN_FUSED=1`` on ``ai/`` and ``real/clip_00_crf23.mp4``, card
+    against CPU (detector timeline 2e-2, the same label, no analyzer
+    error, envelopes valid, ai above real), warp and blur+solve launched
+    12 times a flow window and ``mha`` 6 times a scoring call, and the
+    clips' forensic summary and BMFF scan (``chiprun_out/real_data.json``).
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It needs the repository beside it
@@ -3853,6 +3871,308 @@ def phase_served_groups(card):
     return out
 
 
+CORPUS = os.path.join("tests", "data", "corpus_v1")
+REAL_DRAWS = 4               # host draws of the directory loader timed
+REAL_STEPS = 60              # host-fed steps of the full-width fine-tune
+REAL_PROFILED_STEPS = 5      # host-fed steps under the profiler
+REAL_EVAL_N = 64             # corpus draws of the accuracy (seed 123)
+REAL_ACC_BOUND = 0.85        # tests/test_real_data.py's bound
+REAL_CLIPS = ("ai", "real")  # clip_00_crf23.mp4 of each class
+REAL_LOSS_ATOL = 1e-4        # phase 27's card-against-CPU loss bound
+# what tests/test_torch_meta_forensic.py holds the CPU's forensic summary
+# and BMFF scan of both corpus clips to (the native route: no exiftool)
+REAL_CLIP_FORENSIC = {"c2pa": {"present": False}, "exif_quick": {}}
+REAL_CLIP_BOXES = [
+    "ftyp", "free", "mdat", "moov", "mvhd", "trak", "tkhd", "edts", "elst",
+    "mdia", "mdhd", "hdlr", "minf", "vmhd", "dinf", "stbl", "stsd", "stts",
+    "stss", "ctts", "stsc", "stsz", "stco", "udta", "meta", "hdlr", "ilst",
+    "©too"]
+
+
+def _draw_digest(frames, labels):
+    import hashlib
+    h = hashlib.sha256(frames.tobytes())
+    h.update(labels.tobytes())
+    return h.hexdigest()
+
+
+def _timed_loader(into):
+    """A stand-in for ``train._dir_batches`` that records the host clock
+    at each ``next`` and the seconds it took (``into["start"]``,
+    ``into["next_s"]``), and the first draw's digest."""
+    from avd_tpu_torch.models import train
+    real = train._dir_batches
+
+    def loader(*args):
+        it = real(*args)
+        while True:
+            t0 = time.perf_counter()
+            frames, labels = next(it)
+            into["start"].append(t0)
+            into["next_s"].append(time.perf_counter() - t0)
+            if "first" not in into:
+                into["first"] = _draw_digest(frames, labels)
+            yield frames, labels
+    return loader
+
+
+def _first_loss(base, frames, labels, cfg, logit_l2, dev, f32=False):
+    """The loss at ``base`` on one batch on ``dev``; ``f32`` makes every
+    bf16 cast of the ViT's forward an f32 one (rounding out of the way)."""
+    import torch
+    from avd_tpu_torch.models import detector
+    casts = mock.patch.object(detector, "_bf16", lambda x: x.float()) \
+        if f32 else contextlib.nullcontext()
+    with casts, torch.no_grad():
+        return float(detector.loss_fn(
+            _on_device(base, dev), torch.from_numpy(frames).to(dev),
+            torch.from_numpy(labels).to(dev), cfg, logit_l2=logit_l2))
+
+
+def phase_real_data(card):
+    """Phase 35: the real-media path at full width.  The directory loader
+    on this host, the trainer's ``--data`` branch fine-tuning the shipped
+    ``detector_full`` with its recipe on the committed corpus, the trained
+    parameters' accuracy on corpus draws, and the trained directory served
+    through ``AVD_DETECTOR_CKPT`` on one ai and one real clip, card against
+    CPU (``chiprun_out/real_data.json``)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from avd_tpu_torch import pipeline, schema
+    from avd_tpu_torch.analyzers import meta
+    from avd_tpu_torch.ingest import bmff
+    from avd_tpu_torch.models import convert, detector, optim, scoring, train
+    cuda = torch.device(DEV)
+    kw = _recipe("detector_full")
+    cfg = detector.make_config("full")
+    size, batch = kw["image_size"], kw["batch"]
+    rows = {"card": card, "recipe": {k: (list(v) if isinstance(v, tuple)
+                                         else v) for k, v in kw.items()}}
+
+    # (1) the loader on this host: a seek into each mp4, imread of each JPEG
+    it = train._dir_batches(CORPUS, np.random.default_rng(0), batch, size)
+    draws, seen = [], set()
+    for _ in range(REAL_DRAWS):
+        t0 = time.perf_counter()
+        frames, labels = next(it)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(frames.shape == (batch, size, size, 3)
+              and frames.dtype == np.float32 and 0.0 <= frames.min()
+              and frames.max() <= 1.0, f"draw {frames.shape} {frames.dtype}")
+        seen |= set(labels.tolist())
+        draws.append({"ms": ms, "sha256": _draw_digest(frames, labels)})
+    check(seen == {0, 1}, f"classes drawn {seen}")
+    rows["draws"] = draws
+    log(f"corpus draws of {batch} at {size}² (seed 0, host decode): "
+        + "; ".join(f"{d['ms']:.1f} ms {d['sha256'][:16]}" for d in draws))
+
+    # (2) the --data branch: train() as phase 27 calls it, data= for the pool
+    shipped = scoring._shipped_ckpt("vit", "full")
+    check(shipped is not None, "no shipped detector_full")
+    f0, y0 = next(train._dir_batches(CORPUS, np.random.default_rng(kw["seed"]),
+                                     batch, size))
+    base = convert.load_checkpoint(shipped, cfg)
+    first = {(dev, f32): _first_loss(base, f0, y0, cfg, kw["logit_l2"], dev,
+                                     f32)
+             for dev in ("cpu", cuda) for f32 in (False, True)}
+    cpu_loss = first[("cpu", False)]
+    del base
+    tmp = tempfile.mkdtemp(prefix="avd_real_")
+    try:
+        ck = os.path.join(tmp, "corpus_tuned")
+        clock = {"start": [], "next_s": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(train, "_dir_batches", _timed_loader(clock)):
+            params, losses = train.train(
+                steps=REAL_STEPS, out=ck, init_from=shipped, data=CORPUS,
+                log_every=20, device=cuda, **kw)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(len(losses) == REAL_STEPS and np.isfinite(losses).all(),
+              f"--data losses {losses}")
+        check(clock["first"] == _draw_digest(f0, y0),
+              "the trainer's first batch is not the loader's first draw")
+        # the first step card against CPU: with f32 casts within the
+        # bound; as trained (bf16 casts) within the rounding's own reach,
+        # what bf16 moves the CPU's loss by
+        d_loss = abs(losses[0] - cpu_loss)
+        d_f32 = abs(first[(cuda, True)] - first[("cpu", True)])
+        bf16_reach = abs(cpu_loss - first[("cpu", True)])
+        check(d_f32 <= REAL_LOSS_ATOL, f"first --data step loss with f32 "
+              f"casts: card {first[(cuda, True)]} vs CPU "
+              f"{first[('cpu', True)]}: |Δ| {d_f32}")
+        check(d_loss <= max(REAL_LOSS_ATOL, bf16_reach),
+              f"first --data step loss {losses[0]} on the card vs "
+              f"{cpu_loss} on the CPU: |Δ| {d_loss}, beyond bf16's reach "
+              f"{bf16_reach}")
+        # steady steps: from the third draw to the last (host clock)
+        starts, nexts = clock["start"], clock["next_s"]
+        step_s = np.diff(starts[2:])
+        step_ms = float(np.median(step_s)) * 1e3
+        next_share = float(np.sum(nexts[2:-1]) / (starts[-1] - starts[2]))
+        rows["train"] = {
+            "steps": REAL_STEPS, "losses": losses, "wall_s": wall,
+            "cpu_first_loss": cpu_loss, "first_loss_abs": d_loss,
+            "first_loss_abs_f32": d_f32, "first_loss_bf16_reach": bf16_reach,
+            "first_loss_bound": REAL_LOSS_ATOL,
+            "step_ms_median": step_ms,
+            "step_ms_min": float(step_s.min()) * 1e3,
+            "train_frames_per_s": batch / step_ms * 1e3,
+            "next_ms_median": float(np.median(nexts[2:])) * 1e3,
+            "next_share": next_share, "peak_bytes": peak}
+        log(f"--data fine-tune on {card}: {REAL_STEPS} host-fed steps of "
+            f"{batch} at {size}² from {shipped} in {wall:.1f} s (eval of "
+            f"512 synthetic frames and checkpoint included); loss "
+            f"{losses[0]:.6f} → {losses[-1]:.6f}; first step card vs CPU "
+            f"|Δ| {d_loss:.3g} ({'within' if d_loss <= REAL_LOSS_ATOL else 'MISSED'}"
+            f" {REAL_LOSS_ATOL:g}; bf16 moves the CPU's loss by "
+            f"{bf16_reach:.3g}), with f32 casts |Δ| {d_f32:.3g}; step "
+            f"median {step_ms:.2f} ms (min "
+            f"{step_s.min() * 1e3:.2f}) = {batch / step_ms * 1e3:.1f} train "
+            f"frames/s; next(batches) median "
+            f"{rows['train']['next_ms_median']:.2f} ms, share of the steps "
+            f"{next_share:.4f}; peak {peak / 2**30:.3f} GiB")
+
+        # the same branch's steps under the profiler: idle share
+        opt = detector.make_optimizer(kw["lr"], steps=kw["schedule_horizon"],
+                                      warmup=kw["warmup"],
+                                      schedule=kw["schedule"])
+        p_prof = _on_device(params, cuda)
+        state = opt.init(optim.leaves_of(p_prof))
+        step = detector.make_train_step(cfg, opt, logit_l2=kw["logit_l2"])
+        fed = train._dir_batches(CORPUS, np.random.default_rng(7), batch,
+                                 size)
+
+        def steps():
+            # the trainer's --data loop: a host draw, its copy to the
+            # card, the step, the loss read back
+            for _ in range(REAL_PROFILED_STEPS):
+                frames, labels = next(fed)
+                _, _, loss = step(p_prof, state,
+                                  torch.from_numpy(frames).to(cuda),
+                                  torch.from_numpy(labels).to(cuda))
+                float(loss)
+        steps()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        fed_ms = (time.perf_counter() - t0) * 1e3
+        busy, n_ops, _ = device_profile(steps)
+        idle = 1 - busy / fed_ms
+        rows["profile"] = {"steps": REAL_PROFILED_STEPS, "wall_ms": fed_ms,
+                           "busy_ms": busy, "device_ops": n_ops,
+                           "idle_share": idle}
+        log(f"--data steps under the profiler on {card}: "
+            f"{REAL_PROFILED_STEPS} steps {fed_ms:.1f} ms on the host clock, "
+            f"{busy:.3f} ms busy on the device in {n_ops} ops: idle share "
+            f"{idle:.4f}")
+        del p_prof, state
+
+        # (3) accuracy of the trained parameters on fresh corpus draws
+        fe, ye = next(train._dir_batches(CORPUS, np.random.default_rng(123),
+                                         REAL_EVAL_N, size))
+        with torch.no_grad():
+            logits = detector.forward(params, torch.from_numpy(fe).to(cuda),
+                                      cfg)[:, 0].float().cpu().numpy()
+        acc = float(np.mean((logits > 0) == (ye == 1)))
+        rows["accuracy"] = {"n": REAL_EVAL_N, "acc": acc,
+                            "bound": REAL_ACC_BOUND}
+        log(f"accuracy on {REAL_EVAL_N} corpus draws (seed 123): {acc:.4f} "
+            f"against the CPU test's bound {REAL_ACC_BOUND}"
+            + ("" if acc >= REAL_ACC_BOUND else
+               f": BELOW by {REAL_ACC_BOUND - acc:.4f}"))
+
+        # (4) the trained directory served, card against CPU
+        served = {}
+        _set_env(AVD_DETECTOR="1", AVD_DETECTOR_CKPT=ck, AVD_ATTN_FUSED="1",
+                 AVD_DETECTOR_PRESET=None, AVD_DETECTOR_ARCH=None,
+                 AVD_DETECTOR_BLEND=None, AVD_DETECTOR_SLAB=None,
+                 AVD_STREAM=None)
+        try:
+            for sub in REAL_CLIPS:
+                clip = os.path.join(CORPUS, sub, "clip_00_crf23.mp4")
+                _reset_counters()
+                t0 = time.perf_counter()
+                env = pipeline.analyze_path(clip, device=cuda)
+                secs = time.perf_counter() - t0
+                launches = _counters()
+                cpu = pipeline.analyze_path(clip, device="cpu")
+                served[sub] = (clip, env, cpu, launches, secs)
+        finally:
+            _set_env(AVD_DETECTOR=None, AVD_DETECTOR_CKPT=None,
+                     AVD_ATTN_FUSED=None)
+        rows["served"] = {}
+        for sub, (clip, env, cpu, launches, secs) in served.items():
+            schema.validate(env)
+            schema.validate(cpu)
+            for e in (env, cpu):
+                errs = {k: v for k, v in e["hints"].items()
+                        if k in ("video_error", "audio_error")}
+                if "detector_error" in e["video"]:
+                    errs["detector_error"] = e["video"]["detector_error"]
+                check(not errs, f"{sub} clip: {errs}")
+            det, det_cpu = env["video"]["detector"], cpu["video"]["detector"]
+            check(det["weights"].startswith(ck)
+                  and det_cpu["weights"].startswith(ck),
+                  f"{sub} clip served {det['weights']}, {det_cpu['weights']}")
+            tl, tl_cpu = np.asarray(det["timeline"]), \
+                np.asarray(det_cpu["timeline"])
+            check(tl.shape == tl_cpu.shape and tl.size > 0
+                  and np.isfinite(tl).all(),
+                  f"{sub} clip timelines {tl.shape} {tl_cpu.shape}")
+            d_tl = float(np.max(np.abs(tl - tl_cpu)))
+            check(d_tl <= 2e-2, f"{sub} clip detector timeline card vs CPU "
+                  f"|Δ| {d_tl}")
+            check(env["result"]["label"] == cpu["result"]["label"],
+                  f"{sub} clip label {env['result']['label']} on the card, "
+                  f"{cpu['result']['label']} on the CPU")
+            # one flow window per 48 sampled frames, one scoring call of
+            # the clip's sampled frames
+            n = tl.size
+            windows = -(-n // PAIRS)
+            want = {"warp_bilinear": windows * len(LEVELS) * ROUNDS,
+                    "box_blur_solve": windows * len(LEVELS) * ROUNDS,
+                    "mha": VIT_DEPTH, "solve_iteration": 0}
+            got = {k: launches[k] for k in want}
+            check(got == want, f"{sub} clip launches {got}, want {want}")
+            summary, scan = meta.forensic_summary(clip), bmff.scan_file(clip)
+            check(summary == REAL_CLIP_FORENSIC == env["forensic"]
+                  and scan["box_types"] == REAL_CLIP_BOXES
+                  and not scan["tags"] and not scan["c2pa_uuid"],
+                  f"{sub} clip forensic {summary}, envelope "
+                  f"{env['forensic']}, scan {scan}")
+            rows["served"][sub] = {
+                "timeline": tl.tolist(), "timeline_cpu": tl_cpu.tolist(),
+                "timeline_abs": d_tl, "label": env["result"]["label"],
+                "ai_score": env["result"]["ai_score"],
+                "launches": got, "wall_s": secs, "forensic": summary}
+        m_ai = float(np.mean(rows["served"]["ai"]["timeline"]))
+        m_real = float(np.mean(rows["served"]["real"]["timeline"]))
+        check(m_ai > m_real, f"ai clip's detector mean {m_ai} not above the "
+              f"real clip's {m_real}")
+        rows["served_means"] = {"ai": m_ai, "real": m_real}
+        log(f"served through AVD_DETECTOR_CKPT={ck} with AVD_ATTN_FUSED=1 "
+            f"on {card}: detector mean ai {m_ai:.4f} > real {m_real:.4f}; "
+            + "; ".join(
+                f"{sub}: {len(r['timeline'])} frames, card vs CPU |Δ| "
+                f"{r['timeline_abs']:.3g}, label {r['label']}, launches "
+                f"{r['launches']}, wall {r['wall_s']:.3f} s"
+                for sub, r in rows["served"].items())
+            + f"; forensic {REAL_CLIP_FORENSIC} (BMFF scan) on both")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "real_data.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return {k: sum(r["launches"].get(k, 0) for r in rows["served"].values())
+            for k in _kernel_modules()}
+
+
 def kernel_entry(name, source, replaces, rows, max_err, launches):
     ms = ROUNDS * sum(r[1] for r in rows)
     plain = ROUNDS * sum(r[2] for r in rows)
@@ -3945,6 +4265,7 @@ def main():
         par_rows = phase_parallel_ranks(spec, par_inputs, par_ref)
         train_par_rows = phase_train_parallel(spec, par_inputs)
         group_rows = phase_served_groups(card)
+        real_launches = phase_real_data(card)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -3983,6 +4304,7 @@ def main():
             train_par_rows["kernel_launches_world1"].get(entry["name"], 0)
         entry["streaming_launches"] = stream_launches.get(entry["name"], 0)
         entry["served_launches"] = served_launches.get(entry["name"], 0)
+        entry["real_data_launches"] = real_launches.get(entry["name"], 0)
     # each rank's launches in a served group's AVD_STREAM=0 upload (34)
     for entry in kernels:
         entry["served_group_launches"] = {

@@ -80,12 +80,13 @@ for n in ("avd_tpu_torch.models", "avd_tpu_torch.models.detector",
 
 # The port's tools (all but the weight converter, which reads avd_tpu's
 # orbax checkpoints with jax) import neither jax nor avd_tpu, with the
-# modules they call into.
+# modules they call into; the corpus builder among them.
 _TOOLS_PROBE = r"""
 import glob, importlib.util, os, sys
 import avd_tpu_torch.models.export, avd_tpu_torch.models.train
 tools = sorted(p for p in glob.glob("tools/torch_*.py")
                if not p.endswith("torch_convert_weights.py"))
+assert "tools/torch_make_fixture_corpus.py" in tools, tools
 for path in tools:
     spec = importlib.util.spec_from_file_location(
         os.path.basename(path)[:-3], path)
