@@ -1,7 +1,7 @@
 # Developer entry points (see CLAUDE.md for environment notes).
 
 .PHONY: test test-fast bench bench-latency serve native clean \
-	serve-torch test-torch smoke
+	serve-torch test-torch smoke bench-torch bench-torch-latency
 
 test:
 	python -m pytest tests/ -q
@@ -32,6 +32,14 @@ serve-torch:
 
 test-torch:
 	python -m pytest tests/test_torch_*.py -q
+
+# the port's bench on the card (DEVICE=cpu runs the plain versions)
+bench-torch:
+	python -m avd_tpu_torch.bench $(if $(DEVICE),--device $(DEVICE))
+
+bench-torch-latency:
+	AVD_BENCH_MODE=latency python -m avd_tpu_torch.bench \
+	  $(if $(DEVICE),--device $(DEVICE))
 
 smoke:
 	python3 chip_smoke.py

@@ -260,7 +260,27 @@ Phases, in order; any failure exits non-zero before the result line:
     against CPU (detector timeline 2e-2, the same label, no analyzer
     error, envelopes valid, ai above real), warp and blur+solve launched
     12 times a flow window and ``mha`` 6 times a scoring call, and the
-    clips' forensic summary and BMFF scan (``chiprun_out/real_data.json``).
+    clips' forensic summary and BMFF scan (``chiprun_out/real_data.json``);
+36. the port's benchmark (``avd_tpu_torch/bench.py``): (a) ``python -m
+    avd_tpu_torch.bench`` in a subprocess at its defaults (1080p pan, 145
+    frames, 5 reps, the CPU oracle on 31 frames × 3, the resident stage
+    on): exit 0, one stdout line with every key, ``value`` and
+    ``device_stage_fps`` above 0, the median at most the best, the card's
+    name as ``nvidia-smi`` gives it, no kernel or host library built again;
+    (b) ``bench.run`` in this process: warp and blur+solve launched 48
+    times a streaming pass (4 windows × 4 levels × 3 rounds) over 1 + 5
+    passes and 12 times a resident ``_prep_body`` call over 1 + 8 × 5
+    calls, ``flow_iter`` and ``mha`` never; the resident chain's host
+    ms beside one call's device-busy ms under the profiler; (c) the sha256
+    of the bench's frames (16 at 1080p, each content) with this host's cv2
+    against cv2 5.0.0's (a difference is printed, not failed); (d) latency
+    mode on a 10 s clip (the bench's default: 60): p50 and the label; (e)
+    ``tools/torch_paired_ab.py``, 2 pairs at 2 reps, the default against
+    ``AVD_PALLAS_ITER=1``; (f) ``tools/torch_bench_matrix.py`` at 1080p ×
+    {pan, noise}, 2 reps (static cut for the script's time; 4k left out:
+    145 frames are 3.6 GB on the host); in (b), (e) and (f) the CPU oracle
+    cut to 4 frames × 1
+    (``chiprun_out/bench.json``, ``bench_matrix.json``).
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It needs the repository beside it
@@ -4173,6 +4193,249 @@ def phase_real_data(card):
             for k in _kernel_modules()}
 
 
+# ---------------------------------------------------------------------------
+# phase 36: the port's benchmark and its two tools
+# ---------------------------------------------------------------------------
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "cpu_fps",
+              "gpu_fps_reps", "gpu_fps_median", "gpu_fps_spread",
+              "device_stage_fps", "device"}
+BENCH_REPS = 5               # the bench's default AVD_BENCH_REPS
+BENCH_LATENCY_SECS = 10      # latency mode's clip (the bench's default: 60)
+BENCH_CPU_CUT = {"AVD_BENCH_CPU_FRAMES": "4",  # the CPU oracle in (b), (e)
+                 "AVD_BENCH_CPU_REPS": "1"}    # and (f): 31 frames x 3 cut
+AB_PAIRS = 2                 # (e): two pairs decide nothing (p >= 0.5)
+AB_REPS = 2
+# (f): static cut to keep the script's time; 4k's 145 frames are 3.6 GB
+# on the host
+MATRIX_CELLS = ("1080p/pan", "1080p/noise")
+MATRIX_REPS = 2
+BENCH_TIMEOUT_S = 300        # one bench subprocess
+FRAME_HASH_N = 16
+# sha256 of avd_tpu_torch.bench.make_frames(16, "1080p", content) with cv2
+# 5.0.0 (tests/test_torch_bench_contract.py holds them); pan and static go
+# through cv2.GaussianBlur, noise through numpy alone
+BENCH_FRAME_SHA256 = {
+    "pan": "922d597f3942dc99003550a133f9df3da99a44e1bba9de3c3ec4a2c2f0cb36df",
+    "static":
+        "859c3bf80ba168ef6cef9ac35a2c3c0560853e57c2841c329d10bda64c248f4d",
+    "noise":
+        "e7effeb720ede711a8617bfbaa237fc80eb20c92fb0bfb78b94a85034795061a",
+}
+
+
+def _bench_env(**over):
+    """A bench subprocess's environment: this one's without the port's
+    settings (the bench at its defaults; the build cache kept), plus
+    ``over``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("AVD_") or k == "AVD_NATIVE_CACHE"}
+    env.update(over)
+    return env
+
+
+def _built_libs():
+    """Name and mtime of every built kernel and host library."""
+    import glob
+    from avd_tpu_torch.native import _build as host_build
+    from avd_tpu_torch.ops.kernels import _build
+    return {p: os.path.getmtime(p)
+            for d in (_build.build_dir(), host_build.default_build_dir())
+            for p in glob.glob(os.path.join(d, "*.so"))}
+
+
+def _last_json(proc, what):
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    check(lines, f"{what} printed nothing")
+    return json.loads(lines[-1])
+
+
+def phase_bench(card):
+    """Phase 36: ``python -m avd_tpu_torch.bench`` (a) in a subprocess at
+    its defaults, held to its contract; (b) ``bench.run`` in this process,
+    the launch counts of its streaming passes and resident chains against
+    the counts the code gives, the chain's host seconds beside one
+    profiled call's device-busy ms; (c) the frames' sha256 on this host
+    against cv2 5.0.0's; (d) latency mode on a 10 s clip; (e)
+    ``tools/torch_paired_ab.py``, default against ``AVD_PALLAS_ITER=1``;
+    (f) ``tools/torch_bench_matrix.py`` at 1080p × {pan, noise}
+    (``chiprun_out/bench.json``, ``chiprun_out/bench_matrix.json``)."""
+    import hashlib
+
+    import cv2
+    import torch
+    from avd_tpu_torch import bench
+    from avd_tpu_torch.ops import video_features
+    name = card.rsplit(", ", 1)[0]
+    rows = {"card": card, "seconds": {}, "cuts": {
+        "latency_clip_s": [60, BENCH_LATENCY_SECS],
+        "cpu_oracle_in_b_e_f": [{"AVD_BENCH_CPU_FRAMES": "31",
+                                 "AVD_BENCH_CPU_REPS": "3"}, BENCH_CPU_CUT],
+        "matrix_cells": [["1080p/pan", "1080p/static", "1080p/noise",
+                          "4k/pan", "4k/noise"], list(MATRIX_CELLS)]}}
+
+    def timed(part, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        rows["seconds"][part] = time.perf_counter() - t0
+        return out
+
+    # (a) the contract, at the defaults, in a fresh process
+    before = _built_libs()
+    out = timed("a", lambda: _last_json(subprocess.run(
+        [sys.executable, "-m", "avd_tpu_torch.bench"], env=_bench_env(),
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S),
+        "the bench"))
+    log(f"bench (a): {json.dumps(out)}")
+    check(set(out) == BENCH_KEYS, f"the bench's keys {sorted(out)}")
+    check(out["unit"] == "frames/sec/chip" and out["value"] > 0
+          and out["device_stage_fps"] > 0 and out["cpu_fps"] > 0,
+          f"the bench's numbers {out}")
+    check(len(out["gpu_fps_reps"]) == BENCH_REPS,
+          f"{len(out['gpu_fps_reps'])} reps, expected {BENCH_REPS}")
+    check(out["gpu_fps_median"] <= out["value"],
+          f"median {out['gpu_fps_median']} above best {out['value']}")
+    check(out["device"]["name"] == name,
+          f"the bench's device {out['device']} is not {name!r}")
+    check(_built_libs() == before, "the bench's subprocess built a kernel "
+          "or the host runtime again")
+    rows["a"] = out
+
+    # (b) the launch counts of one run in this process
+    chunk = video_features._DEFAULT_CHUNK
+    per_window = len(LEVELS) * ROUNDS
+    want_pass = -(-FRAMES_MAIN // chunk) * per_window
+    want_stream = want_pass * (1 + BENCH_REPS)  # a warm pass, then reps
+    want_chain = per_window * (1 + bench.CHAIN * BENCH_REPS)
+    snap = {}
+    real_resident = bench.bench_device_resident
+
+    def resident(*args, **kw):
+        snap["streaming"] = _counters()
+        return real_resident(*args, **kw)
+
+    _set_env(AVD_BENCH_MODE=None, AVD_BENCH_FRAMES=None, AVD_BENCH_RES=None,
+             AVD_BENCH_CONTENT=None, AVD_BENCH_REPS=None,
+             AVD_BENCH_DEVICE_STAGE=None, **BENCH_CPU_CUT)
+    _reset_counters()
+    try:
+        with mock.patch.object(bench, "bench_device_resident", resident):
+            inproc = timed("b", lambda: bench.run(DEV))
+    finally:
+        _set_env(**{k: None for k in BENCH_CPU_CUT})
+    total = _counters()
+    stream = snap["streaming"]
+    chain = {k: total[k] - stream[k] for k in total}
+    log(f"bench (b): in-process {json.dumps(inproc)}; launches in the "
+        f"streaming passes {stream}, in the resident chains {chain}")
+    for kname in ("warp_bilinear", "box_blur_solve"):
+        check(stream[kname] == want_stream,
+              f"{kname} launched {stream[kname]} times in the streaming "
+              f"passes, expected {want_stream} ({want_pass} a 145-frame pass"
+              f" x {1 + BENCH_REPS} passes)")
+        check(chain[kname] == want_chain,
+              f"{kname} launched {chain[kname]} times in the resident "
+              f"stage, expected {want_chain} ({per_window} a call x "
+              f"{1 + bench.CHAIN * BENCH_REPS} calls)")
+        check(total[f"{kname}_bf16"] == 0, f"{kname} launched on bf16")
+    check(total["solve_iteration"] == 0 and total["mha"] == 0,
+          f"flow_iter or mha launched in the bench: {total}")
+    flow_u8, hash_u8, cfg = bench.resident_window(
+        bench.make_frames(bench.RESIDENT_FRAMES, "1080p", "pan"),
+        torch.device(DEV))
+    busy_ms, ops, _ = device_profile(
+        lambda: video_features._prep_body(flow_u8, hash_u8, cfg))
+    n_res = flow_u8.shape[0]
+    call_ms = n_res * 1e3 / inproc["device_stage_fps"]
+    rows["b"] = {"run": inproc, "launches_streaming": stream,
+                 "launches_resident": chain, "expected_streaming":
+                 want_stream, "expected_resident": want_chain,
+                 "resident_call_host_ms": call_ms,
+                 "resident_call_busy_ms": busy_ms, "resident_call_ops": ops,
+                 "device_bound_fps": n_res * 1e3 / busy_ms}
+    log(f"bench (b): resident chain {call_ms * bench.CHAIN:.3f} ms on the "
+        f"host clock for {bench.CHAIN} calls ({call_ms:.3f} ms a call); one "
+        f"call busy {busy_ms:.3f} ms on the device in {ops} ops: "
+        f"{'enqueue' if call_ms > 1.1 * busy_ms else 'device'}-bound; "
+        f"device bound {n_res * 1e3 / busy_ms:.1f} frames/s against "
+        f"device_stage_fps {inproc['device_stage_fps']}")
+
+    # (c) the frames on this host against cv2 5.0.0's
+    rows["c"] = {"cv2": cv2.__version__}
+    for content in bench.CONTENTS:
+        got = hashlib.sha256(bench.make_frames(
+            FRAME_HASH_N, "1080p", content).tobytes()).hexdigest()
+        ref = BENCH_FRAME_SHA256[content]
+        rows["c"][content] = {"sha256": got, "equal": got == ref}
+        log(f"bench (c): {content} {FRAME_HASH_N} frames at 1080p sha256 "
+            f"{got} with cv2 {cv2.__version__}: "
+            + ("equal to cv2 5.0.0's" if got == ref else
+               f"DIFFERS from cv2 5.0.0's {ref}"))
+
+    # (d) latency mode, the clip cut to 10 s
+    _set_env(AVD_BENCH_MODE="latency",
+             AVD_BENCH_CLIP_SECS=str(BENCH_LATENCY_SECS))
+    try:
+        lat = timed("d", lambda: bench.run(DEV))
+    finally:
+        _set_env(AVD_BENCH_MODE=None, AVD_BENCH_CLIP_SECS=None)
+    check(lat["label"] in bench.LABELS, f"latency label {lat['label']}")
+    rows["d"] = lat
+    log(f"bench (d): latency p50 {lat['value']} s on a "
+        f"{BENCH_LATENCY_SECS} s 1080p clip (cut from 60; calls "
+        f"{', '.join(f'{s:.4f}' for s in lat['seconds'])} s), label "
+        f"{lat['label']}")
+
+    # (e) the paired A/B: the default against AVD_PALLAS_ITER=1
+    cut = ",".join(f"{k}={v}" for k, v in BENCH_CPU_CUT.items())
+    ab = timed("e", lambda: _last_json(subprocess.run(
+        [sys.executable, "tools/torch_paired_ab.py", "--pairs",
+         str(AB_PAIRS), "--reps", str(AB_REPS), "--env", cut, "--b-env",
+         "AVD_PALLAS_ITER=1", "--a-label", "default", "--b-label",
+         "pallas_iter", "--timeout", str(BENCH_TIMEOUT_S)],
+        env=_bench_env(), capture_output=True, text=True,
+        timeout=(2 + 2 * AB_PAIRS) * BENCH_TIMEOUT_S),
+        "tools/torch_paired_ab.py"))
+    check(len(ab["pairs"]) == AB_PAIRS and ab["sign_test_p"] >= 0.5
+          and ab["device"]["name"] == name, f"the paired A/B {ab}")
+    rows["e"] = ab
+    log(f"bench (e): paired A/B default / AVD_PALLAS_ITER=1, "
+        f"{AB_PAIRS} pairs at AVD_BENCH_REPS={AB_REPS}: "
+        + "; ".join(f"[{p['order']}] {p['a']} / {p['b']} = {p['ratio']}"
+                    for p in ab["pairs"])
+        + f"; median ratio {ab['median_ratio_a_over_b']}, sign test p "
+        f"{ab['sign_test_p']} (two pairs decide nothing)")
+
+    # (f) the matrix at 1080p
+    os.makedirs("chiprun_out", exist_ok=True)
+    matrix_path = os.path.join("chiprun_out", "bench_matrix.json")
+    doc = timed("f", lambda: _last_json(subprocess.run(
+        [sys.executable, "tools/torch_bench_matrix.py", "--reps",
+         str(MATRIX_REPS), "--skip-latency", "--cells",
+         ",".join(MATRIX_CELLS), "--timeout", str(BENCH_TIMEOUT_S), "--out",
+         matrix_path], env=_bench_env(**BENCH_CPU_CUT), capture_output=True,
+        text=True, timeout=len(MATRIX_CELLS) * BENCH_TIMEOUT_S),
+        "tools/torch_bench_matrix.py"))
+    got_cells = [f"{c['res']}/{c['content']}" for c in doc["cells"]]
+    check(got_cells == list(MATRIX_CELLS) and all(
+        c["value"] > 0 and c["device_stage_fps"] > 0
+        and c["device"]["name"] == name for c in doc["cells"]),
+        f"the matrix {doc}")
+    rows["f"] = doc
+    for c in doc["cells"]:
+        log(f"bench (f): {c['res']} {c['content']}: best {c['value']} "
+            f"median {c['gpu_fps_median']} spread {c['gpu_fps_spread']} "
+            f"frames/s, device stage {c['device_stage_fps']}, cpu "
+            f"{c['cpu_fps']} (4 frames x 1)")
+    log(f"bench: phase 36 parts (s) " + ", ".join(
+        f"{k} {v:.2f}" for k, v in rows["seconds"].items()) + f" on {card}")
+    with open(os.path.join("chiprun_out", "bench.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return total
+
+
 def kernel_entry(name, source, replaces, rows, max_err, launches):
     ms = ROUNDS * sum(r[1] for r in rows)
     plain = ROUNDS * sum(r[2] for r in rows)
@@ -4266,6 +4529,7 @@ def main():
         train_par_rows = phase_train_parallel(spec, par_inputs)
         group_rows = phase_served_groups(card)
         real_launches = phase_real_data(card)
+        bench_launches = phase_bench(card)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -4305,6 +4569,7 @@ def main():
         entry["streaming_launches"] = stream_launches.get(entry["name"], 0)
         entry["served_launches"] = served_launches.get(entry["name"], 0)
         entry["real_data_launches"] = real_launches.get(entry["name"], 0)
+        entry["bench_launches"] = bench_launches.get(entry["name"], 0)
     # each rank's launches in a served group's AVD_STREAM=0 upload (34)
     for entry in kernels:
         entry["served_group_launches"] = {

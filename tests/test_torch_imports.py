@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from avd_tpu_torch import analyze as cli
+from avd_tpu_torch import bench
 from avd_tpu_torch import device as device_mod
 from avd_tpu_torch import pipeline
 from avd_tpu_torch.analyzers import audio as audio_an
@@ -74,7 +75,7 @@ for n in ("avd_tpu_torch.models", "avd_tpu_torch.models.detector",
           "avd_tpu_torch.parallel.mesh", "avd_tpu_torch.parallel.distributed",
           "avd_tpu_torch.parallel.halo", "avd_tpu_torch.parallel.pipeline",
           "avd_tpu_torch.parallel.dryrun", "avd_tpu_torch.parallel.zero",
-          "avd_tpu_torch.serve.group"):
+          "avd_tpu_torch.serve.group", "avd_tpu_torch.bench"):
     assert n in names, n
 """
 
@@ -86,7 +87,8 @@ import glob, importlib.util, os, sys
 import avd_tpu_torch.models.export, avd_tpu_torch.models.train
 tools = sorted(p for p in glob.glob("tools/torch_*.py")
                if not p.endswith("torch_convert_weights.py"))
-assert "tools/torch_make_fixture_corpus.py" in tools, tools
+for want in ("make_fixture_corpus", "paired_ab", "bench_matrix"):
+    assert f"tools/torch_{want}.py" in tools, tools
 for path in tools:
     spec = importlib.util.spec_from_file_location(
         os.path.basename(path)[:-3], path)
@@ -154,7 +156,7 @@ def test_port_imports_no_jax_and_no_avd_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 60, r.stdout
+    assert n_modules >= 74, r.stdout
 
 
 def test_only_collectives_calls_torch_distributed_collectives():
@@ -179,7 +181,7 @@ def test_port_tools_import_no_jax_and_no_avd_tpu():
     r = subprocess.run([sys.executable, "-c", _TOOLS_PROBE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 5, r.stdout
+    assert int(r.stdout.split()[0]) >= 10, r.stdout
 
 
 def test_serving_master_imports_no_torch():
@@ -306,6 +308,7 @@ _ENTRY_POINTS = {
     "serve.group.join": lambda: serve_group.join(),
     "scoring.warm": lambda: scoring.warm(),
     "scoring.score_resized": lambda: scoring.score_resized(_frames()),
+    "bench.run": lambda: bench.run(),
     "video_features.cp_pairs": lambda: video_features.cp_pairs(
         np.zeros((2, 320, 320), np.uint8), np.zeros((2, 32, 32), np.uint8)),
 }
