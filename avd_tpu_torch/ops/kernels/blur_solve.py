@@ -77,7 +77,10 @@ def box_blur_solve(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
     """[B, 5, H, W] f32 or bf16 M field → [B, 2, H, W] f32 flow planes.
 
     A CPU tensor takes ``box_blur_solve_plain``; a CUDA tensor launches the
-    kernel or raises."""
+    kernel or raises.  The bf16 kernel holds the plain version to the TPU
+    kernel's tolerance where M is finite; a non-finite value of bf16 M
+    makes outputs non-finite up to 23 columns and 11 rows from it, beyond
+    its 15×15 window (``csrc/blur_solve.cu`` says why)."""
     if m.device.type == "cpu":
         return box_blur_solve_plain(m, winsize)
     _build.check_cuda(m, "M", tuple(_SYMBOLS))

@@ -75,11 +75,19 @@ Phases, in order; any failure exits non-zero before the result line:
     one call (``chiprun_out/analyze_batch_cprofile.txt``);
 13. bf16 kernels: warp and blur+solve on bf16 inputs against their plain
     versions at [48,·,H,W] for the four levels (warp in-bounds |Δ| <= 1e-5,
-    out-of-bounds 0; blur+solve equal bit for bit), timed beside the
-    float32 instances of phases 3 and 4, with their bytes bounds;
+    out-of-bounds 0; blur+solve, its row sums on the tensor cores, at the
+    TPU kernel's contract: atol 2e-4 / rtol 1e-3 on positive-semidefinite
+    M, 1e-6 on a well-conditioned and a constant one), timed beside the
+    float32 instances of phases 3 and 4 and the bf16 blur+solve kernel
+    it replaced ("before"), with their bytes bounds and the bf16
+    kernel's ptxas lines;
 14. modes, on the 61-frame clip: ``AVD_FLOW_BF16=1`` (both kernels
     launched 24 times on bf16 and never on float32; per-pair flow stats
-    within the bound of ``tests/test_flow_bf16.py`` of the float32 run),
+    within the bound of ``tests/test_flow_bf16.py`` of the float32 run;
+    against the port on the CPU under the same switch: per-pair flow
+    means within rtol 1e-4, the variance at that bound, |Δai_score| <=
+    1e-3 and the same label; a resident 49-frame window's device-busy ms
+    with and without it, and its blur+solve kernels' share),
     ``AVD_PREP=device`` (|Δai_score| <= 1e-3 and the same label as host
     prep), ``AVD_CHANGE_GATE=1`` on the clip with a 20-frame static run
     put in front (pairs skipped, the moving pairs within rtol 1e-3 of the
@@ -1397,6 +1405,34 @@ def phase_host_runtime(frames, fb, busy_ms):
                     f"in {v[1]} calls" for k, v in top) + f"; all in {path}")
 
 
+# The bf16 blur+solve kernel before its redesign (M widened into the
+# float32 tile on load), ms on "NVIDIA H100 80GB HBM3, 700.00 W", as
+# PERF.md's kernel table gives them ("Before ms" of its bf16 blur+solve
+# row, which names their runs): 320² and the window from this phase when
+# that kernel was ported, 160²-40² from ``tools/torch_kernel_tiles.py
+# --old``.  Printed for reading beside this run's times; not measured here.
+BF16_BLUR_BEFORE = {320: 0.0883, 160: 0.0264, 80: 0.0142, 40: 0.0106,
+                    "window": 0.4192}
+
+
+def _well_conditioned_m(gen, b, h, w):
+    """Fixed positive-definite G (2, 0, 3), random h: the solve is linear
+    in h (``tests/test_pallas_blur_solve.py``'s well-conditioned case)."""
+    import torch
+    m = torch.randn((b, 5, h, w), generator=gen, device=DEV)
+    m[:, 0], m[:, 1], m[:, 2] = 2.0, 0.0, 3.0
+    return m
+
+
+def _constant_m(gen, b, h, w):
+    """A constant field: every sum of it, the replicate edge's too, is
+    exact."""
+    import torch
+    m = torch.zeros((b, 5, h, w), device=DEV)
+    m[:, 0], m[:, 2], m[:, 3], m[:, 4] = 4.0, 4.0, 2.0, -2.0
+    return m
+
+
 def phase_bf16_kernels(gen, warp32, blur32):
     """The bf16 instances of warp and blur+solve against their plain
     versions at the full window's levels, timed beside the float32
@@ -1435,11 +1471,17 @@ def phase_bf16_kernels(gen, warp32, blur32):
     for h in LEVELS:
         m = _psd_m(gen, PAIRS, h, h).bfloat16()
         out = blur_solve.box_blur_solve(m)
-        ref = blur_solve.box_blur_solve_plain(m)
-        err, ok = _close(out, ref, 2e-4, 1e-3)
-        check(ok and torch.equal(out, ref),
-              f"blur+solve bf16 [{PAIRS},5,{h},{h}]: |Δ| {err}, not equal to "
-              "the plain version")
+        err, ok = _close(out, blur_solve.box_blur_solve_plain(m), 2e-4, 1e-3)
+        check(ok, f"blur+solve bf16 [{PAIRS},5,{h},{h}]: |Δ| {err} over "
+                  "atol 2e-4 rtol 1e-3")
+        exact = []
+        for field in (_well_conditioned_m, _constant_m):
+            me = field(gen, PAIRS, h, h).bfloat16()
+            e, ok = _close(blur_solve.box_blur_solve(me),
+                           blur_solve.box_blur_solve_plain(me), 1e-6, 0.0)
+            check(ok, f"blur+solve bf16 [{PAIRS},5,{h},{h}] "
+                      f"{field.__name__}: |Δ| {e} over 1e-6")
+            exact.append(e)
         berr = max(berr, err)
         ms = time_ms(lambda: blur_solve.box_blur_solve(m))
         plain = time_ms(lambda: blur_solve.box_blur_solve_plain(m))
@@ -1447,10 +1489,17 @@ def phase_bf16_kernels(gen, warp32, blur32):
         bnd, by = bound_ms(px * (5 * 2 + 2 * 4), px * 170)
         brows.append((h, ms, plain, None, bnd, by))
         log(f"blur_solve bf16 [{PAIRS},5,{h},{h}]: kernel {ms:.4f} ms "
-            f"(float32 {f32_blur[h][1]:.4f}), plain {plain:.4f} ms, bound "
-            f"{bnd:.4f} ms ({by}; float32 {f32_blur[h][4]:.4f}); max |Δ| "
-            f"{err:.3g}")
-    for line in ptxas_lines("blur_solve", "blur_solve_kernel"):
+            f"(float32 {f32_blur[h][1]:.4f}; before, recorded: "
+            f"{BF16_BLUR_BEFORE[h]}), "
+            f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}; float32 "
+            f"{f32_blur[h][4]:.4f}); max |Δ| {err:.3g} (psd), "
+            f"{exact[0]:.3g} (well-conditioned), {exact[1]:.3g} (constant)")
+    log(f"blur_solve bf16 window ({ROUNDS} rounds x 4 levels): "
+        f"{ROUNDS * sum(r[1] for r in brows):.4f} ms (float32 "
+        f"{ROUNDS * sum(f32_blur[h][1] for h in LEVELS):.4f}; before, "
+        f"recorded: {BF16_BLUR_BEFORE['window']}), bound "
+        f"{ROUNDS * sum(r[4] for r in brows):.4f} ms")
+    for line in ptxas_lines("blur_solve", "blur_solve_bf16_kernel"):
         log(f"ptxas: {line}")
     for line in ptxas_lines("warp", "warp_bilinear_kernel"):
         log(f"ptxas: {line}")
@@ -1459,6 +1508,30 @@ def phase_bf16_kernels(gen, warp32, blur32):
 
 def _flow_pairs_of(feats):
     return np.asarray(feats["flow_means"]), np.asarray(feats["flow_vars"])
+
+
+def resident_busy(clip):
+    """One resident ``_prep_body`` call (the bench's device stage) on the
+    first 49 frames of ``clip``, under the profiler, with float32 and with
+    bf16 flow fields: device-busy ms, device ops, and the blur+solve
+    kernels' ms and launches (12 a call, on the kernel of its type)."""
+    import torch
+    from avd_tpu_torch import bench
+    from avd_tpu_torch.ops import video_features
+    out = {}
+    for label, flag, kernel in (("float32", None, "blur_solve_kernel"),
+                                ("bf16", "1", "blur_solve_bf16_kernel")):
+        _set_env(AVD_FLOW_BF16=flag)
+        flow_u8, hash_u8, cfg = bench.resident_window(clip, torch.device(DEV))
+        busy, ops, avgs = device_profile(
+            lambda: video_features._prep_body(flow_u8, hash_u8, cfg))
+        blur_ms, n = _kernel_ms(avgs, kernel)
+        check(n == len(LEVELS) * ROUNDS,
+              f"a resident {label} window launched {kernel} {n} times")
+        out[label] = {"busy_ms": busy, "ops": ops, "blur_ms": blur_ms,
+                      "blur_launches": n}
+    _set_env(AVD_FLOW_BF16="1")
+    return out
 
 
 def phase_modes(frames):
@@ -1518,6 +1591,34 @@ def phase_modes(frames):
         check(dm < 0.05 and dv < 0.08 and
               np.array_equal(v16 > 0.5, v32 > 0.5),
               "AVD_FLOW_BF16=1 outside the study bound of the float32 flow")
+        # the same switch on the CPU (the plain versions): the card's bf16
+        # blur+solve differs from it by the tensor cores' order of sums
+        t0 = time.perf_counter()
+        bf_cpu = pipeline.analyze_decoded(fb, wav, 16000, dict(meta),
+                                          device=torch.device("cpu"))
+        cpu_feats = video_features.compute_features(clip, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        mc, vc = _flow_pairs_of(cpu_feats)
+        rel_m = float(np.max(np.abs(m16 - mc) / np.abs(mc)))
+        dvc = float(np.abs(v16 - vc).max())
+        d_ai = abs(ai(bf)[0] - ai(bf_cpu)[0])
+        log(f"mode AVD_FLOW_BF16=1, card against the CPU ({cpu_s:.1f} s): "
+            f"max rel |Δ flow mean| {rel_m:.3g}, max |Δ flow var| "
+            f"{dvc:.3g}, ai_score {ai(bf)} vs {ai(bf_cpu)}")
+        check(rel_m <= 1e-4, f"AVD_FLOW_BF16=1: card and CPU flow means "
+                             f"differ by {rel_m} relative")
+        check(float(np.abs(m16 - mc).max()) < 0.05 and dvc < 0.08 and
+              np.array_equal(v16 > 0.5, vc > 0.5),
+              "AVD_FLOW_BF16=1: card outside the study bound of the CPU")
+        check(d_ai <= 1e-3 and ai(bf)[1] == ai(bf_cpu)[1],
+              f"AVD_FLOW_BF16=1: ai_score differs from the CPU's by {d_ai} "
+              "or the label")
+        busy = resident_busy(clip)
+        log("mode AVD_FLOW_BF16=1, a resident 49-frame window of the clip: "
+            + "; ".join(f"{k} {v['busy_ms']:.3f} ms busy in {v['ops']} "
+                        f"device ops, blur+solve {v['blur_ms']:.3f} ms in "
+                        f"{v['blur_launches']} launches"
+                        for k, v in busy.items()))
 
         dev, dev_n, dev_s = drive(AVD_FLOW_BF16=None, AVD_PREP="device")
         d_ai = abs(ai(dev)[0] - ai(base)[0])

@@ -77,3 +77,37 @@ def test_box_mean_is_the_replicate_edge_mean():
             ref += p[:, :, dy:dy + 9, dx:dx + 11]
     ours = tblur.box_blur_mean(torch.from_numpy(m), 15).numpy()
     np.testing.assert_allclose(ours, ref / 225.0, rtol=1e-6)
+
+
+def _well_conditioned_case(seed, b, h, w):
+    m = np.random.default_rng(seed).normal(size=(b, 5, h, w)).astype(
+        np.float32)
+    m[:, 0], m[:, 1], m[:, 2] = 2.0, 0.0, 3.0
+    return m
+
+
+def _constant_case(seed, b, h, w):
+    m = np.zeros((b, 5, h, w), np.float32)
+    m[:, 0], m[:, 2], m[:, 3], m[:, 4] = 4.0, 4.0, 2.0, -2.0
+    return m
+
+
+@pytest.mark.parametrize("case,shape,atol,rtol", [
+    (_psd_case, (2, 80, 96), 2e-4, 1e-3),
+    (_psd_case, (1, 40, 128), 2e-4, 1e-3),
+    (_psd_case, (1, 120, 130), 2e-4, 1e-3),
+    (_well_conditioned_case, (1, 80, 96), 1e-6, 0.0),
+    (_constant_case, (1, 40, 136), 1e-6, 0.0),
+])
+def test_bf16_m_matches_tpu_blur_solve(case, shape, atol, rtol):
+    """bf16 M (``AVD_FLOW_BF16``), the same values on both sides: the
+    port's plain version widens it as the TPU kernel does, at the
+    reference tests' tolerances."""
+    mb = torch.from_numpy(case(0 if case is _psd_case else 1, *shape)
+                          ).bfloat16()
+    ref = np.asarray(pblur.box_blur_solve(
+        jnp.asarray(mb.float().numpy()).astype(jnp.bfloat16),
+        interpret=True))
+    ours = tblur.box_blur_solve(mb)
+    assert ours.dtype == torch.float32 and ours.shape == ref.shape
+    np.testing.assert_allclose(ours.numpy(), ref, atol=atol, rtol=rtol)

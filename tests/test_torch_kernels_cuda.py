@@ -15,6 +15,7 @@ import torch
 
 from avd_tpu_torch.ops import flow as flow_ops
 from avd_tpu_torch.ops.kernels import attention, blur_solve, flow_iter, warp
+from chip_smoke import _constant_m, _well_conditioned_m
 
 pytestmark = pytest.mark.cuda
 
@@ -101,18 +102,65 @@ def test_warp_kernel_equals_plain_in_both_types(gen, b, h, w, scale):
     assert torch.allclose(out16, out32, atol=8e-3, rtol=8e-3)
 
 
-@pytest.mark.parametrize("b,h,w", _BLUR_SHAPES + [(3, 41, 67), (2, 24, 40)])
-def test_blur_solve_kernel_bf16_equals_plain(gen, b, h, w):
-    """bf16 M, staged through registers and widened: the same sums in the
-    same order as the plain version on the widened field, bit for bit, on
-    both tiles, aligned (W % 8 == 0) and not."""
-    m = _psd_m(gen, b, h, w)
+# the bf16 tile's edges: W % 8 != 0 (every chunk through registers), W < 32,
+# H below the 40-row tile, and tile counts that are no multiple of 132
+_BF16_EDGES = [(3, 41, 67), (2, 24, 40), (5, 33, 20), (1, 57, 8),
+               (7, 39, 250), (4, 40, 36), (13, 320, 328), (11, 100, 100)]
+
+
+@pytest.mark.parametrize("b,h,w", _BLUR_SHAPES + _BF16_EDGES)
+def test_blur_solve_kernel_bf16_within_the_tpu_contract(gen, b, h, w):
+    """bf16 M, row sums on the tensor cores: the TPU kernel's contract
+    ("semantically identical up to f32 accumulation order"), held as its
+    tests hold it, at atol 2e-4 / rtol 1e-3 against the plain version on
+    positive-semidefinite fields, on both tiles, aligned (W % 8 == 0) and
+    not."""
+    m = _psd_m(gen, b, h, w).bfloat16()
     before = dict(blur_solve.DTYPE_LAUNCHES)
-    out = blur_solve.box_blur_solve(m.bfloat16())
+    out = blur_solve.box_blur_solve(m)
     assert blur_solve.DTYPE_LAUNCHES == {**before,
                                          "bfloat16": before["bfloat16"] + 1}
     assert out.dtype == torch.float32
-    assert torch.equal(out, blur_solve.box_blur_solve_plain(m.bfloat16()))
+    torch.testing.assert_close(out, blur_solve.box_blur_solve_plain(m),
+                               atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("field", [_well_conditioned_m, _constant_m])
+@pytest.mark.parametrize("b,h,w", [(1, 80, 96), (1, 40, 136), (3, 41, 67),
+                                   (48, 40, 40), (12, 320, 320)])
+def test_blur_solve_kernel_bf16_exact_cases(gen, field, b, h, w):
+    """On a well-conditioned field and on a constant one (every sum on the
+    replicate edge) the bf16 kernel holds the plain version at 1e-6, as
+    the TPU kernel's tests hold it."""
+    m = field(gen, b, h, w).bfloat16()
+    before = blur_solve.LAUNCHES
+    out = blur_solve.box_blur_solve(m)
+    assert blur_solve.LAUNCHES == before + 1
+    torch.testing.assert_close(out, blur_solve.box_blur_solve_plain(m),
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,w,y,x", [(12, 120, 136, 60, 70),
+                                       (2, 41, 67, 20, 33)])
+def test_blur_solve_kernel_bf16_bounds_a_non_finite_m(gen, b, h, w, y, x):
+    """One Inf in bf16 M: the plain version, as the TPU kernel, makes the
+    outputs whose 15×15 window holds it non-finite.  The kernel's band
+    product (0·Inf) and running column sums spread it further, but only
+    to rows y − 7 … y + 7 + KV − 1 (KV <= 5) and columns x − 23 … x + 23
+    of its image; every other output holds the plain version.  Both
+    tiles: 180 and 12 blocks of 32×40."""
+    m = _psd_m(gen, b, h, w).bfloat16()
+    m[0, 0, y, x] = float("inf")
+    out = blur_solve.box_blur_solve(m)
+    ref = blur_solve.box_blur_solve_plain(m)
+    bad, bad_ref = ~out.isfinite().all(1), ~ref.isfinite().all(1)
+    assert bad_ref.any() and bool((bad | ~bad_ref).all())
+    box = torch.zeros_like(bad)
+    box[0, max(y - 7, 0):y + 12, max(x - 23, 0):x + 24] = True
+    assert not bool((bad & ~box).any())
+    torch.testing.assert_close(out.masked_fill(box[:, None], 0),
+                               ref.masked_fill(box[:, None], 0),
+                               atol=2e-4, rtol=1e-3)
 
 
 def test_blur_solve_kernel_bf16_within_rounding_of_f32(gen):
