@@ -44,6 +44,7 @@ from avd_tpu_torch.ingest import video_reader
 from avd_tpu_torch.models import scoring
 from avd_tpu_torch.ops import forensic_freq, video_features
 from avd_tpu_torch.oracle import video_ref
+from avd_tpu_torch.utils.metrics import span
 
 
 def _empty_result() -> Dict[str, Any]:
@@ -98,8 +99,9 @@ class _DetAccum:
         if self.error:
             return
         try:
-            part = scoring.resize_frames(frames_bgr,
-                                         scoring.input_size(self.device))
+            size = scoring.input_size(self.device)
+            with span("det.resize", frames=frames_bgr.shape[0]):
+                part = scoring.resize_frames(frames_bgr, size)
             self._parts.append(part)
             self._n += part.shape[0]
             if self._n >= self.slab:

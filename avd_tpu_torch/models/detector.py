@@ -71,6 +71,7 @@ from avd_tpu_torch.parallel import mesh as mesh_mod
 from avd_tpu_torch.parallel import pipeline as pl
 from avd_tpu_torch.parallel import zero
 from avd_tpu_torch.parallel.mesh import P
+from avd_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -855,7 +856,9 @@ def make_train_step(cfg, optimizer, loss=None, logit_l2: float = 0.0,
     ``zero_mode`` is ``parallel/zero.py``'s (``None``: replicated over
     ``data``; ``"zero1"``; ``"fsdp"``, with ``specs`` the FSDP ones).  The
     optimizer state comes from ``step.dp.init(leaves)``, and the loss
-    returned is the global batch's."""
+    returned is the global batch's.  Each step is a span ``train.step``
+    around ``train.forward``, ``train.backward`` and ``train.optim``
+    (``utils/metrics.py``)."""
     loss = loss or loss_fn
     if not sharded:
         if zero_mode:
@@ -863,12 +866,18 @@ def make_train_step(cfg, optimizer, loss=None, logit_l2: float = 0.0,
                              "and a mesh")
 
         def step(params, opt_state, frames, labels):
-            leaves = optim.leaves_of(params)
-            for p in leaves:
-                p.requires_grad_(True)
-            lval = loss(params, frames, labels, cfg, logit_l2=logit_l2)
-            optimizer.update(leaves, _grads(lval, leaves), opt_state)
-            return params, opt_state, lval.detach()
+            with span("train.step"):
+                leaves = optim.leaves_of(params)
+                for p in leaves:
+                    p.requires_grad_(True)
+                with span("train.forward"):
+                    lval = loss(params, frames, labels, cfg,
+                                logit_l2=logit_l2)
+                with span("train.backward"):
+                    grads = _grads(lval, leaves)
+                with span("train.optim"):
+                    optimizer.update(leaves, grads, opt_state)
+                return params, opt_state, lval.detach()
 
         return step
 
@@ -880,15 +889,21 @@ def make_train_step(cfg, optimizer, loss=None, logit_l2: float = 0.0,
     fsdp_specs = specs if zero_mode == "fsdp" else None
 
     def sharded_step(params, opt_state, frames, labels):
-        leaves = optim.leaves_of(params)
-        dev = leaves[0].device
-        for p in leaves:
-            p.requires_grad_(True)
-        lval = loss(params, mesh_mod.batch_slice(mesh, frames).to(dev),
-                    mesh_mod.batch_slice(mesh, labels).to(dev), cfg,
-                    logit_l2=logit_l2, mesh=mesh, fsdp_specs=fsdp_specs)
-        dp.update(leaves, _grads(lval, leaves), opt_state)
-        return params, opt_state, dp.mean(lval.detach())
+        with span("train.step"):
+            leaves = optim.leaves_of(params)
+            dev = leaves[0].device
+            for p in leaves:
+                p.requires_grad_(True)
+            with span("train.forward"):
+                lval = loss(params, mesh_mod.batch_slice(mesh, frames).to(dev),
+                            mesh_mod.batch_slice(mesh, labels).to(dev), cfg,
+                            logit_l2=logit_l2, mesh=mesh,
+                            fsdp_specs=fsdp_specs)
+            with span("train.backward"):
+                grads = _grads(lval, leaves)
+            with span("train.optim"):
+                dp.update(leaves, grads, opt_state)
+            return params, opt_state, dp.mean(lval.detach())
 
     sharded_step.dp = dp
     return sharded_step

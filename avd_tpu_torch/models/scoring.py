@@ -79,6 +79,7 @@ from avd_tpu_torch import models
 from avd_tpu_torch.models import convert
 from avd_tpu_torch.models import quant as quant_mod
 from avd_tpu_torch.ops import host_prep
+from avd_tpu_torch.utils.metrics import span
 
 
 def enabled() -> bool:
@@ -336,8 +337,7 @@ def _timeline_resized(resized_bgr: np.ndarray, device) -> dict:
 def score_resized(resized_bgr: np.ndarray, device=None) -> dict:
     """Score frames resized to ``input_size()`` (BGR uint8): flipped to
     RGB and scaled to [0, 1] here, on each rank of a served group."""
-    return _score_prepped(resized_bgr[..., ::-1].astype(np.float32) / 255.0,
-                          device)
+    return _score_prepped(resized_bgr, device)
 
 
 def warm(device=None) -> dict:
@@ -354,8 +354,10 @@ def detector_timeline(frames_bgr: np.ndarray, device=None) -> Optional[dict]:
     the detector is disabled or no frames exist."""
     if not enabled() or frames_bgr.shape[0] == 0:
         return None
-    return _timeline_resized(resize_frames(frames_bgr, input_size(device)),
-                             device)
+    size = input_size(device)
+    with span("det.resize", frames=frames_bgr.shape[0]):
+        resized = resize_frames(frames_bgr, size)
+    return _timeline_resized(resized, device)
 
 
 def _pad(batch: np.ndarray, size: int) -> np.ndarray:
@@ -366,37 +368,48 @@ def _pad(batch: np.ndarray, size: int) -> np.ndarray:
     return np.concatenate([batch, np.repeat(batch[-1:], size - n, axis=0)])
 
 
-def _score_prepped(batch: np.ndarray, device=None) -> dict:
-    """Score a prepped [N, size, size, 3] RGB f32 batch.  Per-frame
+def _score_prepped(resized_bgr: np.ndarray, device=None) -> dict:
+    """Score a resized [N, size, size, 3] BGR uint8 batch, flipped to RGB
+    and scaled to [0, 1] f32 here.  Per-frame
     families: padded to a power-of-two bucket (times the data axis when
     sharded) with the last frame repeated, one forward pass, one fetch of
     the first N probabilities; an
     exported program takes chunks of its traced batch, the last padded the
     same way.  Clip families: one forward per fixed window, the tail
-    window padded the same way and its padding masked out of attention."""
+    window padded the same way and its padding masked out of attention.
+    Spans: ``det.stage`` (the flip, the scale and the padding; ``frames``
+    and the padded ``bucket``), ``det.forward`` (the copy to the device
+    and the forward's launches) and ``det.fetch``."""
     dev = device_mod.resolve(device)
     _, _, probs_fn, source = _bundle(dev)
     window = getattr(probs_fn, "clip_window", None)
     fixed = getattr(probs_fn, "fixed_batch", None)
+    n = resized_bgr.shape[0]
     if window or fixed:
         size = window or fixed
+        with span("det.stage", frames=n, bucket=-(-n // size) * size):
+            batch = resized_bgr[..., ::-1].astype(np.float32) / 255.0
+            chunks = [(min(size, n - s), np.ascontiguousarray(
+                _pad(batch[s:s + size], size))) for s in range(0, n, size)]
         outs = []
-        for s in range(0, batch.shape[0], size):
-            chunk = batch[s:s + size]
-            k = chunk.shape[0]
-            x = torch.from_numpy(np.ascontiguousarray(_pad(chunk, size)))
-            outs.append((probs_fn(x.to(dev), k) if window
-                         else probs_fn(x.to(dev)))[:k])
-        p = torch.cat(outs).cpu().numpy()
+        for k, chunk in chunks:
+            with span("det.forward", frames=k):
+                x = torch.from_numpy(chunk).to(dev)
+                outs.append((probs_fn(x, k) if window else probs_fn(x))[:k])
+        with span("det.fetch"):
+            p = torch.cat(outs).cpu().numpy()
         return {"timeline": [float(x) for x in p], "weights": source}
-    n = batch.shape[0]
     bucket = getattr(probs_fn, "min_batch", 1)
     while bucket < n:
         bucket *= 2
-    batch = _pad(batch, bucket)
-    p = probs_fn(torch.from_numpy(np.ascontiguousarray(batch)))
-    return {"timeline": [float(x) for x in p[:n].cpu().numpy()],
-            "weights": source}
+    with span("det.stage", frames=n, bucket=bucket):
+        batch = np.ascontiguousarray(_pad(
+            resized_bgr[..., ::-1].astype(np.float32) / 255.0, bucket))
+    with span("det.forward", frames=n):
+        p = probs_fn(torch.from_numpy(batch))
+    with span("det.fetch"):
+        p = p[:n].cpu().numpy()
+    return {"timeline": [float(x) for x in p], "weights": source}
 
 
 def blend(timeline_ai: List[float], det: List[float]) -> List[float]:

@@ -47,6 +47,7 @@ from __future__ import annotations
 import concurrent.futures
 import functools
 import os
+import time
 from typing import Dict
 
 import numpy as np
@@ -58,6 +59,7 @@ from avd_tpu_torch import native
 from avd_tpu_torch.oracle import video_ref
 from avd_tpu_torch.ops import flow, hashing, laplacian, resize
 from avd_tpu_torch.ops import host_prep as host_prep_mod
+from avd_tpu_torch.utils import metrics
 
 # Frames per device chunk (excluding the 1-frame lead-in): AVD_VIDEO_CHUNK,
 # read once at import as avd_tpu reads it (avd_tpu/ops/video_features.py:45).
@@ -228,14 +230,21 @@ def _dispatch_pool():
 
 
 def _enqueue_prep_window(w320: np.ndarray, w32: np.ndarray,
-                         device: torch.device, cfg, stream) -> torch.Tensor:
+                         device: torch.device, cfg, stream, parent=None,
+                         submitted_ns: int = 0, pad: int = 0) -> torch.Tensor:
     """``run_prep_window`` on the dispatch thread.  CUDA's current device
     and stream belong to each host thread, so the window is enqueued on
-    the caller's (``stream``; None on the CPU)."""
-    if stream is None:
-        return run_prep_window(w320, w32, device, cfg)
-    with torch.cuda.device(device), torch.cuda.stream(stream):
-        return run_prep_window(w320, w32, device, cfg)
+    the caller's (``stream``; None on the CPU).  Spans: ``vf.queued`` from
+    the caller's submit (``submitted_ns``) to here, then ``vf.enqueue``
+    (the window's bucketed length and its ``pad`` frames), both under the
+    caller's span ``parent``."""
+    metrics.record("vf.queued", submitted_ns, time.time_ns(), parent=parent)
+    with metrics.span("vf.enqueue", parent=parent, frames=w320.shape[0],
+                      pad=pad):
+        if stream is None:
+            return run_prep_window(w320, w32, device, cfg)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            return run_prep_window(w320, w32, device, cfg)
 
 
 def run_window(window_gray_u8: np.ndarray, device: torch.device, cfg=None):
@@ -311,10 +320,11 @@ def _fetch_windows(pend, with_tex: bool, sinks) -> None:
     ``"pool"`` a dispatch future of one (resolved first, so its window
     comes back in the one copy too), ``"host"`` a future of a host array
     from the cross-request batcher (resolved after the fetch)."""
-    on_device = [vec.result() if kind == "pool" else vec
-                 for vec, kind, *_ in pend if kind != "host"]
-    fetched = iter(torch.cat(on_device).cpu().split(
-        [v.numel() for v in on_device]) if on_device else ())
+    with metrics.span("vf.fetch"):
+        on_device = [vec.result() if kind == "pool" else vec
+                     for vec, kind, *_ in pend if kind != "host"]
+        fetched = iter(torch.cat(on_device).cpu().split(
+            [v.numel() for v in on_device]) if on_device else ())
     for vec, kind, valid, is_first, target in pend:
         vec = vec.result() if kind == "host" else next(fetched).numpy()
         k = target - 1
@@ -444,7 +454,8 @@ def compute_features_streaming(chunk_iter, device=None,
                          ), "host"
         elif host_mode:
             vec, kind = _dispatch_pool().submit(
-                _enqueue_prep_window, *windows, dev, cfg, stream), "pool"
+                _enqueue_prep_window, *windows, dev, cfg, stream,
+                metrics.current(), time.time_ns(), target - 1 - valid), "pool"
         else:
             vec, kind = _device_window_vector(
                 run_window(windows[0], dev, cfg)), "device"
@@ -456,8 +467,9 @@ def compute_features_streaming(chunk_iter, device=None,
             if frames.shape[0] == 0:
                 continue
             if host_mode:
-                s320, s32, tex = host_prep_mod.host_prep(frames,
-                                                         native=cfg.native)
+                with metrics.span("vf.host_prep", frames=frames.shape[0]):
+                    s320, s32, tex = host_prep_mod.host_prep(
+                        frames, native=cfg.native)
                 tex_parts.append(tex)
                 parts = (s320, s32)
             else:

@@ -37,7 +37,7 @@ from avd_tpu_torch.analyzers import video as video_an
 from avd_tpu_torch.config import get_config
 from avd_tpu_torch.ingest import probe, video_reader
 from avd_tpu_torch.ops import audio_features, video_features
-from avd_tpu_torch.utils.metrics import COUNTERS, StageTimer
+from avd_tpu_torch.utils.metrics import COUNTERS, SPANS, in_span, span
 
 
 class _DaemonTask:
@@ -142,40 +142,42 @@ def analyze_path(path: str, source_url: Optional[str] = None,
     window batcher (``serve/batching.py``), or None to run in-process."""
     dev = device_mod.pinned(device)
     cfg = get_config()
-    timer = StageTimer()
     COUNTERS.inc("requests")
+    with span("analyze") as root:
+        with span("probe"):
+            meta = probe.probe_basic_meta(path)
+            hints = hx.compute_hints(meta, path)
 
-    with timer.stage("probe"):
-        meta = probe.probe_basic_meta(path)
-        hints = hx.compute_hints(meta, path)
+        with span("analyzers"):
+            deadline = time.monotonic() + _analyzer_timeout(cfg)
+            audio_t = _spawn_safe(in_span("audio", audio_an.analyze),
+                                  path, meta, dev)
+            video_t = _spawn_safe(in_span("video", video_an.analyze),
+                                  path, meta, dev, batcher)
+            audio, a_hint = _finish_safe(audio_t, meta, _neutral_audio,
+                                         "audio_error", "audio_traceback",
+                                         deadline)
+            video, v_hint = _finish_safe(video_t, meta, _neutral_video,
+                                         "video_error", "video_traceback",
+                                         deadline)
+        hints.update(a_hint)
+        hints.update(v_hint)
+        COUNTERS.inc("frames_analyzed",
+                     len(video.get("timeline_ai") or []))
 
-    with timer.stage("analyzers"):
-        deadline = time.monotonic() + _analyzer_timeout(cfg)
-        audio_t = _spawn_safe(audio_an.analyze, path, meta, dev)
-        video_t = _spawn_safe(video_an.analyze, path, meta, dev, batcher)
-        audio, a_hint = _finish_safe(audio_t, meta, _neutral_audio,
-                                     "audio_error", "audio_traceback",
-                                     deadline)
-        video, v_hint = _finish_safe(video_t, meta, _neutral_video,
-                                     "video_error", "video_traceback",
-                                     deadline)
-    hints.update(a_hint)
-    hints.update(v_hint)
-    COUNTERS.inc("frames_analyzed",
-                 len(video.get("timeline_ai") or []))
-
-    with timer.stage("fusion"):
-        out = envelope(meta, hints, video, audio, source_url, resolved_url)
-    try:
-        with timer.stage("forensic"):
-            forensic = meta_an.forensic_summary(path)
-        if forensic:
-            out["forensic"] = forensic
-    except Exception:
-        if cfg.debug:
-            out["forensic_error"] = traceback.format_exc()
-    if cfg.profile:
-        out["profile"] = timer.report()
+        with span("fusion"):
+            out = envelope(meta, hints, video, audio, source_url,
+                           resolved_url)
+        try:
+            with span("forensic"):
+                forensic = meta_an.forensic_summary(path)
+            if forensic:
+                out["forensic"] = forensic
+        except Exception:
+            if cfg.debug:
+                out["forensic_error"] = traceback.format_exc()
+        if cfg.profile:
+            out["profile"] = SPANS.stage_ms(root)
     return out
 
 
@@ -204,7 +206,12 @@ def analyze_decoded(fb: video_reader.FrameBatch, wav: np.ndarray, sr: int,
     ``meta`` carries the probed fields (width, height, fps, duration,
     bit_rate, vcodec, acodec, format_name)."""
     dev = device_mod.resolve(device)
-    hints = hx.compute_hints(meta, "")
-    video = video_an.analyze_batch(fb, device=dev)
-    audio = audio_features.analyze_waveform(wav, sr, device=dev)
-    return envelope(meta, hints, video, audio)
+    with span("analyze"):
+        with span("hints"):
+            hints = hx.compute_hints(meta, "")
+        with span("video"):
+            video = video_an.analyze_batch(fb, device=dev)
+        with span("audio"):
+            audio = audio_features.analyze_waveform(wav, sr, device=dev)
+        with span("fusion"):
+            return envelope(meta, hints, video, audio)

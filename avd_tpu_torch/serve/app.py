@@ -123,8 +123,9 @@ class _Tracer:
     A profiler must be stopped by the thread that started it, and requests
     arrive on arbitrary handler threads, so one owner thread per session
     starts it, waits, then stops it and exports the Chrome trace.  It
-    records the operators of every thread (the analyses run on their own)
-    and, on CUDA, every kernel on the card."""
+    records the operators of every thread (the analyses run on their own),
+    the program's spans among them as ranges of their names
+    (``utils/metrics.py``), and, on CUDA, every kernel on the card."""
 
     def __init__(self, device):
         self.device = device
@@ -231,15 +232,18 @@ def build_app(analyze_fn=None, device=None) -> App:
     @app.route("GET", "/metrics")
     def metrics(req: Request) -> Response:
         """Process counters — beyond-reference observability
-        (SURVEY.md §5: requests, frames/sec, batch occupancy).
+        (SURVEY.md §5: requests, frames/sec, batch occupancy) — and each
+        span's ``span_<name>_count``, ``span_<name>_seconds`` and
+        ``span_<name>_<attr>_total`` (``utils/metrics.py``).
 
         JSON by default; Prometheus text exposition (0.0.4) when the
         scraper asks for it (``?format=prometheus`` or an Accept header
         preferring text/plain), so a stock Prometheus scrape job works
         against the same path.
         """
-        from avd_tpu_torch.utils.metrics import COUNTERS
+        from avd_tpu_torch.utils.metrics import COUNTERS, SPANS
         snap = COUNTERS.snapshot()
+        snap.update(SPANS.flat())
         b = batching._ACTIVE
         if b is not None:
             snap["batch_jobs_in"] = b.jobs_in

@@ -260,7 +260,7 @@ _ENTRY_POINTS = {
                                                AVD_DETECTOR_QUANT="1"),
     "scoring.input_size": lambda: scoring.input_size(),
     "scoring._score_prepped": lambda: scoring._score_prepped(
-        np.zeros((1, 224, 224, 3), np.float32)),
+        np.zeros((1, 224, 224, 3), np.uint8)),
     "scoring.detector_timeline": lambda: scoring.detector_timeline(_frames()),
     "scoring.detector_timeline_resized":
         lambda: scoring.detector_timeline_resized(_frames()),

@@ -294,7 +294,8 @@ def test_score_prepped_pads_5_to_8_and_returns_5(env, tmp_path):
 
     env.setattr(tscoring, "_bundle_on", lambda device:
                 (cfg, params, spy, source))
-    batch = np.random.default_rng(0).random((5, 64, 64, 3), np.float32)
+    batch = np.random.default_rng(0).integers(0, 256, (5, 64, 64, 3),
+                                              dtype=np.uint8)
     out = tscoring._score_prepped(batch, "cpu")
     assert len(out["timeline"]) == 5 and out["weights"] == "random_init"
     assert all(0.0 <= p <= 1.0 for p in out["timeline"])
