@@ -60,28 +60,19 @@
 #include <stdint.h>
 
 #include "blur.cuh"
+#include "update.cuh"
 
 namespace {
 
 using namespace avd;
 
-constexpr int kBorder = 5;
 constexpr int kCols = kInW - 2;  // staged columns 1 … 46 enter a sum
-
-struct Border {
-  float s[kBorder];  // taper within 5 px of each edge, outermost first
-};
-
-__device__ __forceinline__ float edge_scale(int p, int size,
-                                            const Border& border) {
-  const int d = min(p, size - 1 - p);  // distance to the nearer edge
-  return d < kBorder ? border.s[d] : 1.f;
-}
 
 // Phase 1: M at every staged position of the tile whose first output is
 // (y0, x0) → s[c][r][sc] for r = 0 … TH + 13, sc = 1 … 46 (image row
 // y0 − 7 + r, column x0 − 8 + sc, clamped), 32 neighbouring positions a
-// warp.
+// warp.  The warp and the update are update.cuh's, as in warp.cu's update
+// instance.
 template <int TH>
 __device__ __forceinline__ void update_stage(
     float* s, const float* __restrict__ r0b, const float* __restrict__ r1b,
@@ -98,57 +89,20 @@ __device__ __forceinline__ void update_stage(
 
     const float dx = flb[p];
     const float dy = flb[plane + p];
-    const float fx = static_cast<float>(gx) + dx;
-    const float fy = static_cast<float>(gy) + dy;
-    const float x1 = floorf(fx);
-    const float y1 = floorf(fy);
-    // NaN flow fails every comparison and lands out of bounds
-    const bool inb = x1 >= 0.f && x1 <= static_cast<float>(W - 2) &&
-                     y1 >= 0.f && y1 <= static_cast<float>(H - 2);
-    float w[kC];  // warped R1, 0 out of bounds
-    if (inb) {
-      const float a = fx - x1;
-      const float b = fy - y1;
-      const float w00 = (1.f - b) * (1.f - a);
-      const float w01 = (1.f - b) * a;
-      const float w10 = b * (1.f - a);
-      const float w11 = b * a;
-      const float* t = r1b + static_cast<int64_t>(y1) * W +
-                       static_cast<int64_t>(x1);
+    float w[kPoly];  // warped R1, 0 out of bounds
+    const bool inb = warp_sample(r1b, plane, H, W,
+                                 static_cast<float>(gx) + dx,
+                                 static_cast<float>(gy) + dy, w);
+    float a[kPoly];
 #pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const float* tc = t + c * plane;
-        w[c] = w00 * tc[0] + w01 * tc[1] + w10 * tc[W] + w11 * tc[W + 1];
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < kC; ++c) w[c] = 0.f;
-    }
-
-    const float a0 = r0b[p];
-    const float a1 = r0b[plane + p];
-    const float a2 = r0b[2 * plane + p];
-    const float a3 = r0b[3 * plane + p];
-    const float a4 = r0b[4 * plane + p];
-    float r4 = inb ? (a2 + w[2]) * 0.5f : a2;
-    float r5 = inb ? (a3 + w[3]) * 0.5f : a3;
-    float r6 = inb ? (a4 + w[4]) * 0.25f : a4 * 0.5f;
-    float r2 = (a0 - w[0]) * 0.5f + r4 * dx + r6 * dy;
-    float r3 = (a1 - w[1]) * 0.5f + r6 * dx + r5 * dy;
-
-    const float taper = edge_scale(gy, H, border) * edge_scale(gx, W, border);
-    r2 = r2 * taper;
-    r3 = r3 * taper;
-    r4 = r4 * taper;
-    r5 = r5 * taper;
-    r6 = r6 * taper;
+    for (int c = 0; c < kPoly; ++c) a[c] = r0b[c * plane + p];
+    float m[kPoly];
+    update_entries(a, w, inb, dx, dy,
+                   edge_scale(gy, H, border) * edge_scale(gx, W, border), m);
 
     float* d = s + r * kPitch + sc;
-    d[0] = r4 * r4 + r6 * r6;                  // g11
-    d[kInH * kPitch] = (r4 + r5) * r6;         // g12
-    d[2 * kInH * kPitch] = r5 * r5 + r6 * r6;  // g22
-    d[3 * kInH * kPitch] = r4 * r2 + r6 * r3;  // h1
-    d[4 * kInH * kPitch] = r6 * r2 + r5 * r3;  // h2
+#pragma unroll
+    for (int c = 0; c < kPoly; ++c) d[c * kInH * kPitch] = m[c];
   }
 }
 
@@ -201,8 +155,7 @@ constexpr int64_t kSmallTileBelow = 100;
 }  // namespace
 
 // r0, r1 [B,5,H,W] f32, flow [B,2,H,W] f32 → out [B,2,H,W] f32, all
-// contiguous on the current device, H and W at least 2·5 so that the taper
-// bands of opposite edges do not meet; `border` holds the five taper
+// contiguous on the current device; `border` holds the five taper
 // factors, outermost pixel first.  Launched on `stream`; returns the first
 // CUDA error.
 extern "C" int avd_flow_iter(const float* r0, const float* r1,

@@ -9,15 +9,16 @@ once:
 * pyramid = one composed gaussian-blur + bilinear-resize matrix per axis
   (``ops/band.py``), polynomial expansion = nine banded matmuls plus the
   inverse-Gram contraction;
-* per level, 3 solver rounds of warp (``ops/kernels/warp.py``) → the
-  pointwise normal equations → blur+solve (``ops/kernels/blur_solve.py``),
-  or, with ``fused_iter``, one ``ops/kernels/flow_iter.py`` call per round.
+* per level, 3 solver rounds of warp with the pointwise normal equations
+  as its epilogue (``ops/kernels/warp.py:warp_update``) → blur+solve
+  (``ops/kernels/blur_solve.py``), or, with ``fused_iter``, one
+  ``ops/kernels/flow_iter.py`` call per round.
 
-On CUDA the warp, the blur+solve and the fused round are the hand-written
-kernels at every level (the JAX package's ``H % 40`` gates came from the
-TPU's tiling); on the CPU their plain versions run.  Layouts stay the JAX
-package's: fields are channels-first [B, 5, H, W] and ``farneback_flow``
-returns [B, H, W, 2].
+On CUDA the warp+update, the blur+solve and the fused round are the
+hand-written kernels at every level (the JAX package's ``H % 40`` gates
+came from the TPU's tiling); on the CPU their plain versions run.
+Layouts stay the JAX package's: fields are channels-first [B, 5, H, W]
+and ``farneback_flow`` returns [B, H, W, 2].
 The numpy helpers are copies (``avd_tpu/ops/flow.py`` imports jax).
 """
 
@@ -220,15 +221,19 @@ def _warp_poly(R1: torch.Tensor, flow: torch.Tensor):
 def _update_matrices(R0: torch.Tensor, R1: torch.Tensor,
                      flow: torch.Tensor) -> torch.Tensor:
     """Pointwise normal-equation entries M=[B,5,H,W] (G11,G12,G22,h1,h2)
-    from channels-first polynomial fields and flow planes."""
-    return update_from_warped(R0, warp_k.warp_bilinear(R1, flow), flow)
+    from channels-first polynomial fields and flow planes: on CUDA one
+    launch of the warp kernel with the update as its epilogue, on the CPU
+    ``update_from_warped`` after the plain warp."""
+    return warp_k.warp_update(R0, R1, flow)
 
 
 def update_from_warped(R0: torch.Tensor, R1w: torch.Tensor,
                        flow: torch.Tensor) -> torch.Tensor:
     """``_update_matrices`` after the warp: R1w is R1 warped by ``flow``
     (0 outside the in-bounds rule).  bf16 fields (``flow_bf16``) are
-    widened here, as in ``avd_tpu/ops/flow.py``: all arithmetic is f32."""
+    widened here, as in ``avd_tpu/ops/flow.py``: all arithmetic is f32.
+    The plain version of the warp kernel's update epilogue
+    (``csrc/update.cuh``), which keeps this order of operations."""
     H, W = R0.shape[2:4]
     inb = _in_bounds(flow)
     R0 = R0.float()

@@ -26,10 +26,11 @@ LAUNCHES = 0  # kernel launches; raised only where the kernel is launched
 
 _C = 5
 WINSIZE = 15   # the window the kernel is compiled for (Farnebäck default)
-MIN_SIZE = 16  # smallest H, W: the taper bands of two edges must not meet
+MIN_SIZE = 16  # smallest H, W, as in the JAX kernel (its taper bands of two
+#               edges must not meet)
 # Border taper within 5 px of each edge, outermost pixel first (OpenCV
 # FarnebackUpdateMatrices); handed to the kernel at each launch.
-BORDER_SCALE = (0.14, 0.14, 0.4472, 0.4472, 0.4472)
+BORDER_SCALE = warp_k.BORDER_SCALE
 
 
 def solve_iteration_plain(R0: torch.Tensor, R1: torch.Tensor,

@@ -12,13 +12,21 @@ Phases, in order; any failure exits non-zero before the result line:
    pyramid levels, on smooth random flow and on a large pan (in-bounds
    |Δ| <= 1e-5, out-of-bounds exactly 0), with kernel, plain and
    ``grid_sample`` times and the bytes bound;
+3b. warp_update: the warp with the update epilogue against the plain
+   composition (plain warp, then ``update_from_warped``), equal bit for
+   bit in float32 and bf16 on both flows at [48,5,H,W] and the tail
+   window's [12,5,H,W] for the four levels, timed beside what it replaced
+   (the warp kernel, then the PyTorch update) and its 68 B/px bound, the
+   bf16 instance at [48,5,H,W] beside its 48 B/px bound; the warp
+   kernel's ptxas lines;
 4. blur+solve: the same on positive-semidefinite M fields (atol 2e-4,
    rtol 1e-3, and equal bit for bit), plus the tail window's four levels
    ([12,5,H,W]; its 40² level takes the small tile) and ragged and small
    planes ([3,5,37,53], [2,5,16,16]); the kernel's ptxas lines;
 5. main path: 145 panning 1080p BGR frames and a 5 s speech-like waveform
    through ``pipeline.analyze_decoded`` on the card; the launch counters
-   must rise by 48 each (4 windows × 4 levels × 3 rounds); the envelope
+   must rise by 48 each (4 windows × 4 levels × 3 rounds), every warp
+   launch with the update epilogue; the envelope
    must pass ``schema.validate``; then host-prep, device and end-to-end
    times (the windows enqueued by the dispatch thread);
 5b. dispatch: the warm ``analyze_batch`` and the device pass (host prep
@@ -521,6 +529,60 @@ def phase_warp(gen):
     return rows, max_err
 
 
+def phase_warp_update(gen, warp32):
+    """The warp with the update epilogue against the plain composition and
+    beside what it replaced on the default path: the warp kernel and then
+    the plain PyTorch update (``update_from_warped``)."""
+    import torch
+    from avd_tpu_torch.ops import flow as flow_ops
+    from avd_tpu_torch.ops.kernels import warp
+    f32_warp = {r[0]: r for r in warp32}
+    rows, max_err = [], 0.0
+    for pairs, h in [(b, lv) for b in (PAIRS, 12) for lv in LEVELS]:
+        R1, cases = _warp_cases(h, gen, pairs)
+        R0 = torch.rand((pairs, 5, h, h), generator=gen, device=DEV)
+        for dtype in (torch.float32, torch.bfloat16):
+            r0, r1 = R0.to(dtype), R1.to(dtype)
+            for name, fl in cases.items():
+                out = warp.warp_update(r0, r1, fl)
+                ref = warp.warp_update_plain(r0, r1, fl)
+                check(torch.equal(out, ref),
+                      f"warp_update [{pairs},{h}] {dtype} {name}: not equal "
+                      "to the plain composition")
+                max_err = max(max_err, float((out - ref).abs().max()))
+        fl = cases["smooth"]
+        n_inb = int(flow_ops._in_bounds(fl).sum())
+        ms = time_ms(lambda: warp.warp_update(R0, R1, fl))
+        before = time_ms(lambda: flow_ops.update_from_warped(
+            R0, warp.warp_bilinear(R1, fl), fl))
+        plain = time_ms(lambda: warp.warp_update_plain(R0, R1, fl), reps=9)
+        px = pairs * h * h
+        # flow 8 B, R0 and R1 20 B each, M 20 B: 68 B/px
+        bnd, by = bound_ms(px * (2 + 5 + 5 + 5) * 4,
+                           px * 44 + n_inb * 35)
+        key = h if pairs == PAIRS else f"{h} at B={pairs}"
+        extra = ""
+        if pairs == PAIRS:
+            r0, r1 = R0.bfloat16(), R1.bfloat16()
+            b16 = time_ms(lambda: warp.warp_update(r0, r1, fl))
+            extra = (f", bf16 {b16:.4f} ms (bound "
+                     f"{bound_ms(px * (2 * 4 + 10 * 2 + 5 * 4), 0)[0]:.4f}),"
+                     f" warp alone (phase 3) {f32_warp[h][1]:.4f} ms")
+        rows.append((key, ms, plain, None, bnd, by, before))
+        log(f"warp_update [{pairs},5,{h},{h}]: kernel {ms:.4f} ms "
+            f"({ms / bnd:.2f}x bound), before (warp kernel + PyTorch update)"
+            f" {before:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}){extra}; equal to the plain composition in f32 and bf16")
+    full = rows[:len(LEVELS)]
+    log(f"warp_update window ({ROUNDS} rounds x 4 levels): "
+        f"{ROUNDS * sum(r[1] for r in full):.4f} ms, before "
+        f"{ROUNDS * sum(r[6] for r in full):.4f} ms, bound "
+        f"{ROUNDS * sum(r[4] for r in full):.4f} ms")
+    for line in ptxas_lines("warp", "warp_bilinear_kernel"):
+        log(f"ptxas: {line}")
+    return rows, max_err
+
+
 def _psd_m(gen, b, h, w):
     import torch
     r4, r5, r6, h1, h2 = torch.randn((5, b, h, w), generator=gen, device=DEV)
@@ -573,7 +635,8 @@ def ptxas_lines(source, kernel):
             spill = line.strip()
         elif name and kernel in name and "Used" in line:
             args = ",".join(re.findall(r"Li(\d+)E", name)
-                            + (["bf16"] if "nv_bfloat16" in name else []))
+                            + (["bf16"] if "nv_bfloat16" in name else [])
+                            + (["update"] if "Lb1E" in name else []))
             used = line.split(":", 1)[1].strip()
             out.append(f"{kernel}<{args}>: {used}; {spill}")
     return out or [f"{kernel}: not built in this run"]
@@ -590,8 +653,9 @@ def _reset_counters():
     mods = _kernel_modules()
     for mod in mods.values():
         mod.LAUNCHES = 0
-    for which in mods["mha"].VARIANT_LAUNCHES:
-        mods["mha"].VARIANT_LAUNCHES[which] = 0
+    for name in ("mha", "warp_bilinear"):
+        for which in mods[name].VARIANT_LAUNCHES:
+            mods[name].VARIANT_LAUNCHES[which] = 0
     for name in ("warp_bilinear", "box_blur_solve"):
         for dtype in mods[name].DTYPE_LAUNCHES:
             mods[name].DTYPE_LAUNCHES[dtype] = 0
@@ -599,11 +663,13 @@ def _reset_counters():
 
 def _counters():
     """Launches per wrapper; the bf16 launches of warp and blur+solve also
-    under ``<name>_bf16`` (they are counted in ``<name>`` too)."""
+    under ``<name>_bf16``, and the warp's launches with the update epilogue
+    under ``warp_update`` (they are counted in ``<name>`` too)."""
     mods = _kernel_modules()
     out = {name: mod.LAUNCHES for name, mod in mods.items()}
     for name in ("warp_bilinear", "box_blur_solve"):
         out[f"{name}_bf16"] = mods[name].DTYPE_LAUNCHES["bfloat16"]
+    out["warp_update"] = mods["warp_bilinear"].VARIANT_LAUNCHES["update"]
     return out
 
 
@@ -638,6 +704,9 @@ def phase_main_path():
               f"{name} launched {launches[name]} times on the main path "
               f"({launches[f'{name}_bf16']} on bf16), expected 48 on "
               "float32 (4 windows x 4 levels x 3 rounds)")
+    check(launches["warp_update"] == launches["warp_bilinear"],
+          f"{launches['warp_update']} of {launches['warp_bilinear']} warp "
+          "launches carried the update epilogue on the main path")
     schema.validate(env)
     summ = env["video"]["summary"]
     check(all(np.isfinite(v) for v in summ.values()
@@ -4593,6 +4662,7 @@ def main():
         gen = torch.Generator(device=DEV)
         gen.manual_seed(0)
         warp_rows, warp_err = phase_warp(gen)
+        upd_rows, upd_err = phase_warp_update(gen, warp_rows)
         blur_rows, blur_err = phase_blur_solve(gen)
         launches, frames, fb, e2e_s = phase_main_path()
         dispatch = phase_dispatch(frames, fb, card)
@@ -4658,6 +4728,11 @@ def main():
         kernel_entry("box_blur_solve_bf16", "avd_tpu_torch/csrc/blur_solve.cu",
                      "avd_tpu/ops/pallas/blur_solve.py:97", b16_rows,
                      b16_err, bf16_launches["box_blur_solve_bf16"]),
+        kernel_entry("warp_update", "avd_tpu_torch/csrc/warp.cu",
+                     "avd_tpu/ops/pallas/warp.py:143 and "
+                     "avd_tpu/ops/flow.py:_update_matrices",
+                     upd_rows[:len(LEVELS)], upd_err,
+                     launches["warp_update"]),
     ]
     kernels[3]["moe_small_launches"] = \
         family_rows["moe_small fused"]["mha_launches"]
@@ -4691,6 +4766,11 @@ def main():
         r[6] for r in iter_rows[:len(LEVELS)])
     kernels[2]["tail_per_level_ms"] = {str(r[0]): r[1]
                                        for r in iter_rows[len(LEVELS):]}
+    # what the update epilogue replaces: warp kernel + PyTorch update
+    kernels[-1]["before_ms"] = ROUNDS * sum(r[6] for r in
+                                           upd_rows[:len(LEVELS)])
+    kernels[-1]["tail_per_level_ms"] = {str(r[0]): r[1]
+                                        for r in upd_rows[len(LEVELS):]}
     log(f"file path: analyze_path WAV {wav_s:.3f} s, mp4 {mp4_s:.3f} s "
         f"(first calls), CLI first call {cli_s:.2f} s")
     on, off = serve_rows["on"], serve_rows["off"]

@@ -370,7 +370,8 @@ def test_launch_counts_are_exact_across_threads():
 
 def _fake_lib(name):
     fns = {n: types.SimpleNamespace() for n in (
-        "avd_warp_bilinear", "avd_warp_bilinear_bf16", "avd_blur_solve",
+        "avd_warp_bilinear", "avd_warp_bilinear_bf16", "avd_warp_update",
+        "avd_warp_update_bf16", "avd_blur_solve",
         "avd_blur_solve_bf16", "avd_flow_iter", "avd_mha_mma",
         "avd_mha_general", "avd_mha_smem_bytes")}
     return types.SimpleNamespace(
@@ -379,10 +380,11 @@ def _fake_lib(name):
 
 @pytest.mark.parametrize("mod, call", [
     (warp, lambda: warp._lib(torch.float32)),
+    (warp, lambda: warp._lib(torch.bfloat16, "update")),
     (blur_solve, lambda: blur_solve._lib(torch.bfloat16)),
     (flow_iter, lambda: flow_iter._lib()),
     (attention, lambda: attention._lib()),
-], ids=["warp", "blur_solve", "flow_iter", "attention"])
+], ids=["warp", "warp_update", "blur_solve", "flow_iter", "attention"])
 def test_symbols_are_bound_once_across_threads(monkeypatch, mod, call):
     """Concurrent first calls bind the library's functions once and every
     caller gets them with their argument types set."""

@@ -190,6 +190,140 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         blur_solve.box_blur_solve(src[:, :4].contiguous())
 
 
+def _update_fields(gen, b, h, w, scale, dtype):
+    R0 = torch.randn((b, 5, h, w), generator=gen, device="cuda").to(dtype)
+    R1 = torch.randn((b, 5, h, w), generator=gen, device="cuda").to(dtype)
+    fl = (torch.rand((b, 2, h, w), generator=gen, device="cuda") - 0.5) \
+        * scale
+    return R0, R1, fl
+
+
+def _bits(x):
+    """x's float32 bit patterns, every NaN as one."""
+    return torch.where(x.isnan(), float("nan"), x).view(torch.int32)
+
+
+_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [48, 12])
+@pytest.mark.parametrize("h", [320, 160, 80, 40])
+@pytest.mark.parametrize("scale", [3.0, 40.0])
+def test_warp_update_equals_the_plain_composition(gen, dtype, b, h, scale):
+    """The warp with the update epilogue forms M in the plain version's
+    order, uncontracted: bit for bit ``update_from_warped`` after the
+    plain warp, at the window's levels, full (48 pairs) and tail (12), in
+    both field types; at scale 40 most pixels leave the image."""
+    R0, R1, fl = _update_fields(gen, b, h, h, scale, dtype)
+    out = warp.warp_update(R0, R1, fl)
+    assert out.dtype == torch.float32 and out.shape == (b, 5, h, h)
+    assert torch.equal(out, warp.warp_update_plain(R0, R1, fl))
+    assert torch.equal(out, flow_ops.update_from_warped(
+        R0, warp.warp_bilinear_plain(R1, fl), fl))
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [2, 7, 9, 10, 11])
+@pytest.mark.parametrize("w", [2, 7, 9, 10, 11])
+def test_warp_update_where_the_taper_bands_meet(gen, dtype, h, w):
+    """Under 10 px the taper bands of opposite edges meet and both factors
+    apply, as in ``_border_taper``'s product; 2 px is the smallest plane
+    the in-bounds rule leaves a pixel in."""
+    R0, R1, fl = _update_fields(gen, 3, h, w, 2.0, dtype)
+    assert torch.equal(warp.warp_update(R0, R1, fl),
+                       warp.warp_update_plain(R0, R1, fl))
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,w", _SHAPES)
+def test_warp_update_on_flow_out_of_bounds_and_nan(gen, dtype, b, h, w):
+    """A pan past the image on both sides, and NaN flow planted on a third
+    of the pixels (each plane alone and both): every pixel out of bounds
+    keeps R0's terms, NaN flow gives NaN where the plain version does, and
+    the rest is the plain version bit for bit."""
+    R0, R1, fl = _update_fields(gen, b, h, w, 3.0, dtype)
+    for shift in (500.0, -500.0, 61.3):
+        pan = torch.full_like(fl, shift)
+        assert torch.equal(warp.warp_update(R0, R1, pan),
+                           warp.warp_update_plain(R0, R1, pan))
+    planted = fl.clone()
+    third = torch.rand((b, h, w), generator=gen, device="cuda") < 1 / 3
+    planted[:, 0][third] = float("nan")
+    planted[:, 1][third.roll(1, -1)] = float("nan")
+    out = warp.warp_update(R0, R1, planted)
+    ref = warp.warp_update_plain(R0, R1, planted)
+    assert ref.isnan().any()
+    assert torch.equal(_bits(out), _bits(ref))
+
+
+def test_warp_update_refuses_what_the_kernel_does_not_take(gen):
+    R0, R1, fl = _update_fields(gen, 1, 8, 8, 1.0, torch.float32)
+    with pytest.raises(TypeError):
+        warp.warp_update(R0.half(), R1.half(), fl)
+    with pytest.raises(TypeError):
+        warp.warp_update(R0, R1.bfloat16(), fl)
+    with pytest.raises(TypeError):
+        warp.warp_update(R0, R1, fl.double())
+    with pytest.raises(ValueError):
+        warp.warp_update(R0[:, :4].contiguous(), R1[:, :4].contiguous(), fl)
+    with pytest.raises(ValueError):
+        warp.warp_update(R0, R1[..., :4].contiguous(), fl)
+    with pytest.raises(ValueError):
+        warp.warp_update(R0, R1, fl[..., :4].contiguous())
+    with pytest.raises(ValueError):
+        warp.warp_update(R0[..., :1].contiguous(), R1[..., :1].contiguous(),
+                         fl[..., :1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        warp.warp_update(R0.transpose(2, 3), R1, fl)
+    with pytest.raises(ValueError, match="contiguous"):
+        warp.warp_update(R0, R1, fl.transpose(2, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        warp.warp_update(R0.cpu(), R1, fl)
+    with pytest.raises(ValueError, match="CUDA"):
+        warp.warp_update(R0, R1, fl.cpu())
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["f32", "bf16"])
+def test_warp_update_counts_each_launch_once(gen, dtype):
+    """A launch of the update instance is one warp launch, counted once
+    in ``LAUNCHES``, under its field type and under ``update``; the plain
+    warp counts under ``warp``."""
+    R0, R1, fl = _update_fields(gen, 2, 40, 48, 3.0, dtype)
+    name = str(dtype).replace("torch.", "")
+    counts = (warp.LAUNCHES, dict(warp.DTYPE_LAUNCHES),
+              dict(warp.VARIANT_LAUNCHES), blur_solve.LAUNCHES)
+    warp.warp_update(R0, R1, fl)
+    assert (warp.LAUNCHES, warp.DTYPE_LAUNCHES, warp.VARIANT_LAUNCHES,
+            blur_solve.LAUNCHES) == (
+        counts[0] + 1, {**counts[1], name: counts[1][name] + 1},
+        {**counts[2], "update": counts[2]["update"] + 1}, counts[3])
+    warp.warp_update_plain(R0, R1, fl)
+    warp.warp_bilinear(R1, fl)
+    assert (warp.LAUNCHES, warp.DTYPE_LAUNCHES, warp.VARIANT_LAUNCHES) == (
+        counts[0] + 2, {**counts[1], name: counts[1][name] + 2},
+        {"warp": counts[2]["warp"] + 1, "update": counts[2]["update"] + 1})
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["f32", "bf16"])
+def test_a_flow_window_launches_the_update_instance_every_round(gen, dtype):
+    """``farneback_flow``'s unfused rounds are each one warp launch with
+    the update epilogue and one blur+solve: 12 of each for the 4 levels of
+    a 320² pair, none of the plain warp; the fused round takes none."""
+    prev = torch.rand((2, 320, 320), generator=gen, device="cuda") * 255
+    cur = prev.roll((2, 3), (1, 2))
+    counts = (dict(warp.VARIANT_LAUNCHES), blur_solve.LAUNCHES,
+              flow_iter.LAUNCHES)
+    flow_ops.farneback_flow(prev, cur, flow_bf16=dtype == torch.bfloat16)
+    assert (warp.VARIANT_LAUNCHES, blur_solve.LAUNCHES,
+            flow_iter.LAUNCHES) == (
+        {**counts[0], "update": counts[0]["update"] + 12},
+        counts[1] + 12, counts[2])
+    flow_ops.farneback_flow(prev, cur, fused_iter=True)
+    assert (warp.VARIANT_LAUNCHES, blur_solve.LAUNCHES) == (
+        {**counts[0], "update": counts[0]["update"] + 12}, counts[1] + 12)
+
+
 @pytest.mark.parametrize("b,h,w", [(1, 16, 16), (3, 37, 53), (2, 40, 48),
                                    (1, 96, 33), (2, 17, 300), (2, 160, 160)])
 @pytest.mark.parametrize("scale", [0.0, 3.0, 40.0])

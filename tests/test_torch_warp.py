@@ -86,3 +86,52 @@ def test_integer_flow_is_a_shift():
                                   src[..., 0:38, 2:47])
     assert not out[..., 0, :].any()   # y - 1 < 0
     assert not out[..., :, 46:].any()  # x + 2 > W - 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,w,scale", [(2, 40, 56, 4.0), (1, 80, 96, 40.0),
+                                         (3, 9, 7, 2.0), (1, 2, 11, 1.0)])
+def test_warp_update_on_the_cpu_is_the_plain_composition(dtype, b, h, w,
+                                                         scale):
+    """On CPU tensors the warp with the update epilogue is
+    ``update_from_warped`` after the plain warp, launches nothing, and
+    returns float32 M from bf16 fields too."""
+    rng = np.random.default_rng(5)
+    r0, r1 = (torch.from_numpy(rng.standard_normal((b, 5, h, w))
+                               .astype(np.float32)).to(dtype)
+              for _ in range(2))
+    fl = torch.from_numpy(((rng.random((b, 2, h, w)) - 0.5) * scale)
+                          .astype(np.float32))
+    counts = (twarp.LAUNCHES, dict(twarp.DTYPE_LAUNCHES),
+              dict(twarp.VARIANT_LAUNCHES))
+    got = twarp.warp_update(r0, r1, fl)
+    assert (twarp.LAUNCHES, twarp.DTYPE_LAUNCHES,
+            twarp.VARIANT_LAUNCHES) == counts
+    assert got.dtype == torch.float32 and got.shape == (b, 5, h, w)
+    assert torch.equal(got, tflow.update_from_warped(
+        r0, twarp.warp_bilinear_plain(r1, fl), fl))
+    assert torch.equal(got, tflow._update_matrices(r0, r1, fl))
+
+
+def _edge_scale(p, size):
+    """``csrc/update.cuh``'s taper of one axis, in float32: the factor of
+    each edge whose 5-px band holds p, both where the bands meet."""
+    s = np.float32(1.0)
+    if p < 5:
+        s = s * np.float32(twarp.BORDER_SCALE[p])
+    if size - 1 - p < 5:
+        s = s * np.float32(twarp.BORDER_SCALE[size - 1 - p])
+    return s
+
+
+@pytest.mark.parametrize("h", [2, 3, 5, 7, 9, 10, 11, 16, 40])
+@pytest.mark.parametrize("w", [2, 4, 6, 9, 10, 13, 320])
+def test_the_kernels_taper_rule_is_the_plain_table(h, w):
+    """The update kernel forms the taper per pixel as edge_scale(y, H) ·
+    edge_scale(x, W); it is ``_border_taper``'s table bit for bit at every
+    size, the small ones whose bands meet included."""
+    ours = np.array([[_edge_scale(y, h) * _edge_scale(x, w)
+                      for x in range(w)] for y in range(h)], np.float32)
+    ref = tflow._border_taper(h, w)
+    np.testing.assert_array_equal(ours.view(np.int32), ref.view(np.int32))
