@@ -84,7 +84,10 @@ class _DetAccum:
     timeline does not depend on the grouping; the clip-based temporal
     family scores in fixed windows, and only whole windows flush
     mid-stream (``scoring.clip_window``), so its streaming timeline is the
-    batch path's."""
+    batch path's.  So does the TimeSformer, whose last window overlaps the
+    one before it (``scoring.window_overlap``): a last flush shorter than a
+    window is scored after the frames that complete it, which the
+    previous flush scored, and their scores are dropped."""
 
     def __init__(self, device):
         self.device = device
@@ -94,6 +97,7 @@ class _DetAccum:
         self._n = 0
         self._timeline: list = []
         self._weights = None
+        self._last = None  # the last window's frames of the last flush
 
     def add(self, frames_bgr) -> None:
         if self.error:
@@ -123,9 +127,15 @@ class _DetAccum:
             self._parts, self._n = [rest], rest.shape[0]
         else:
             self._parts, self._n = [], 0
+        keep = 0
+        if win and scoring.window_overlap(self.device):
+            if acc.shape[0] < win and self._last is not None:
+                keep = win - acc.shape[0]
+                acc = np.concatenate([self._last[-keep:], acc])
+            self._last = acc[-win:].copy()
         det = scoring.detector_timeline_resized(acc, device=self.device)
         if det is not None:
-            self._timeline.extend(det["timeline"])
+            self._timeline.extend(det["timeline"][keep:])
             self._weights = det["weights"]
 
     def result(self):

@@ -3,10 +3,11 @@
 ``from_jax_params`` takes a JAX parameter tree of any detector family as
 nested dicts and lists of numpy arrays (each family's ``param_shapes``
 names the keys: the ViT and its mixture-of-experts presets, the CNN, the
-temporal transformer) and returns the port's tree: the same keys and
-layouts, as f32 torch tensors on the CPU, every shape checked against the
-config.  ``save_npz`` / ``load_npz`` store a tree as one flat ``.npz``
-(``layers.3.qkv_w``, ``stages.1.blocks.0.dw_w`` style names);
+temporal transformer, and the port's own TimeSformer) and returns the
+port's tree: the same keys and layouts, as f32 torch tensors on the CPU,
+every shape checked against the config.  ``save_npz`` / ``load_npz``
+store a tree as one flat ``.npz`` (``layers.3.qkv_w``,
+``stages.1.blocks.0.dw_w`` style names);
 ``save_checkpoint`` / ``load_checkpoint`` write and read a checkpoint
 directory (``params.npz``, beside which the trainer puts
 ``train_meta.json`` and the eval tool ``calibration.json``).
@@ -29,14 +30,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from avd_tpu_torch.models import cnn, detector, temporal
+from avd_tpu_torch.models import cnn, detector, temporal, timesformer
 
 PARAMS_FILE = "params.npz"
 
 
 def family_of(cfg):
     """The family module of a config."""
-    for mod in (detector, cnn, temporal):
+    for mod in (detector, cnn, temporal, timesformer):
         if isinstance(cfg, mod.Config):
             return mod
     raise TypeError(f"not a detector config: {cfg!r}")

@@ -377,6 +377,21 @@ def _moe_mlp(h: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
     return y, E * (frac * mean_gate).sum(dim=-1).mean()
 
 
+def attention_core(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Softmax attention of bf16 [B, T, H, D] queries, keys and values →
+    [B, T, H·D] bf16: f32 scores from the bf16 values (their products are
+    exact in f32) over sqrt(D), f32 softmax, P rounded to bf16, f32
+    accumulation.  The einsum core of every block that does not take the
+    hand-written kernel: the ViT's, its tensor-parallel block's and both
+    attentions of ``models/timesformer.py``."""
+    b, t, h, d = q.shape
+    att = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    att = torch.softmax(att / np.sqrt(d), dim=-1)
+    o = torch.einsum("bhts,bshd->bthd", _bf16(att).float(), v.float())
+    return _bf16(o.reshape(b, t, h * d))
+
+
 def block_forward_aux(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
                       router_x: Optional[torch.Tensor] = None):
     """One transformer block on the bf16 residual stream [B, T, width] →
@@ -390,12 +405,7 @@ def block_forward_aux(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
     if cfg.fused_attn:
         o = attention_k.attention(q, k, v)          # [b, t, width] bf16
     else:
-        # f32 scores from the bf16 values (their products are exact in
-        # f32), f32 softmax, P rounded to bf16, f32 accumulation
-        att = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
-        att = torch.softmax(att / np.sqrt(cfg.head_dim), dim=-1)
-        o = torch.einsum("bhts,bshd->bthd", _bf16(att).float(), v.float())
-        o = _bf16(o.reshape(b, t, cfg.width))
+        o = attention_core(q, k, v)
     o = o @ _bf16(lp["proj_w"]) + _bf16(lp["proj_b"])
     x = x + o
 
@@ -515,10 +525,7 @@ def block_forward_tp(x: torch.Tensor, lp: Dict[str, Any], cfg: ViTConfig,
     b, t, _ = qkv.shape
     qkv = qkv.reshape(b, t, local_heads, 3, cfg.head_dim)
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
-    att = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
-    att = torch.softmax(att / np.sqrt(cfg.head_dim), dim=-1)
-    o = torch.einsum("bhts,bshd->bthd", _bf16(att).float(), v.float())
-    o = _bf16(o.reshape(b, t, local_width))
+    o = attention_core(q, k, v)
     x = x + (leave(_partial(o, lp["proj_w"])) + _bf16(lp["proj_b"]))
 
     h = enter(_bf16(_ln(x.float(), lp["ln2_scale"], lp["ln2_bias"])))

@@ -71,6 +71,10 @@ def _build(arch: str, preset: Optional[str], ckpt: Optional[str],
     preset), ``None`` seeded weights."""
     from avd_tpu_torch.models import scoring
 
+    if arch == "timesformer":
+        raise ValueError("exported programs serve the vit, cnn and temporal "
+                         "families, not 'timesformer' (its windows are "
+                         "scored by models/scoring.py on the eager path)")
     family = models.family(arch)
     preset = preset or scoring._default_preset(arch)
     cfg = family.make_config(preset, **(config_overrides or {}))

@@ -8,13 +8,14 @@ device:
   analyzer's output;
 * ``AVD_DETECTOR_BLEND=x`` (0..1) blends the detector probability into
   ``timeline_ai`` (0 keeps the pure heuristic);
-* ``AVD_DETECTOR_ARCH`` picks the family: ``vit`` (default), ``cnn`` or
-  ``temporal``;
+* ``AVD_DETECTOR_ARCH`` picks the family: ``vit`` (default), ``cnn``,
+  ``temporal`` or ``timesformer``;
 * ``AVD_DETECTOR_PRESET`` picks the config.  The default follows
   ``avd_tpu``'s rule (``_default_preset``): for the ViT ``full`` (224 px,
   width 384, depth 6) when its converted checkpoint ships in
-  ``weights/``, else ``small`` when that one does, else ``full``; ``small``
-  for the other families.  ``moe_small`` is the Switch-MoE ViT;
+  ``weights/``, else ``small`` when that one does, else ``full``; ``hr``
+  for the TimeSformer, ``small`` for the other families.  ``moe_small`` is
+  the Switch-MoE ViT;
 * ``AVD_DETECTOR_CKPT`` names a directory written by
   ``tools/torch_convert_weights.py`` (``params.npz`` and, beside it,
   ``calibration.json``); absent, the shipped checkpoint of (family,
@@ -34,7 +35,22 @@ device:
   in fixed ``AVD_TEMPORAL_WINDOW`` windows (default 32), the tail padded
   with its last frame and masked out of attention, so scores do not
   depend on the clip's length and streaming slabs (``clip_window``) give
-  the batch path's scores.
+  the batch path's scores;
+* ``AVD_DETECTOR_ARCH=timesformer`` (``models/timesformer.py``, preset
+  ``hr``) gives one logit a window of T = 16 sampled frames.  A clip of
+  n ≥ T frames is scored in windows at 0, T, 2T, …; where T does not
+  divide n a last window holds the clip's last T frames and overlaps the
+  one before it, so no window is padded.  The windows go through in
+  forwards of 1, 2, 4 … ``max_windows`` windows (powers of two, largest
+  first), none padded.  Each frame takes the probability of the first
+  window that holds it.  A clip under T frames is padded with its last
+  frame to one window (a departure from the published model, which takes
+  exactly T).  The uint8 windows are copied to the device, flipped to RGB
+  and scaled there.  The streaming path flushes whole windows mid-stream
+  and scores its last partial window with the frames before it
+  (``window_overlap``), so it gives the batch path's timeline.  The
+  fused-attention, int8 and exported modes raise for this family, naming
+  it.
 
 * ``AVD_DETECTOR_EXPORTED=<dir>`` serves an artifact of
   ``models/export.py`` (the program, its weights and temperature inside)
@@ -50,7 +66,8 @@ over every rank, each rank its parameter shards, its slice of the bucket
 probability.  ``AVD_ATTN_FUSED=1`` is turned off there with
 ``avd_tpu``'s warning (the sharded block keeps the einsum attention);
 ``AVD_DETECTOR_QUANT=1`` serves on each rank alone, with its warning;
-the temporal family serves on each rank alone, as in ``avd_tpu``.  Every
+the temporal family serves on each rank alone, as in ``avd_tpu``, and so
+does the TimeSformer.  Every
 rank must score the same frames.  A served group (``serve/group.py``)
 scores sharded at any size, a group of one included; its leader enters
 the call on every rank with the resized uint8 frames
@@ -94,7 +111,8 @@ def blend_factor() -> float:
 
 
 def _arch() -> str:
-    """Model family: 'vit' (default), 'cnn' or 'temporal'."""
+    """Model family: 'vit' (default), 'cnn', 'temporal' or
+    'timesformer'."""
     return os.getenv("AVD_DETECTOR_ARCH", "vit")
 
 
@@ -137,8 +155,11 @@ _SHIPPED = {("vit", "small"): "detector_small",
 
 def _default_preset(arch: str) -> str:
     """The trained serving-size ``full`` when its checkpoint ships, else
-    the trained ``small``, else ``full`` on seeded weights; the other
-    families default ``small`` (``avd_tpu/models/scoring.py:68-77``)."""
+    the trained ``small``, else ``full`` on seeded weights; the
+    TimeSformer's published ``hr``; the other families default ``small``
+    (``avd_tpu/models/scoring.py:68-77``)."""
+    if arch == "timesformer":
+        return "hr"
     if arch != "vit":
         return "small"
     if os.path.isdir(os.path.join(_WEIGHTS_DIR, "detector_full")):
@@ -241,6 +262,18 @@ def _bundle_on(device: str):
         # of attention, so scores do not depend on the clip's length
         probs.clip_window = max(1, int(os.getenv("AVD_TEMPORAL_WINDOW",
                                                  "32")))
+    elif arch == "timesformer":
+        params = family.cast_for_inference(params, dev)
+
+        @torch.inference_mode()
+        def probs(windows_bgr: torch.Tensor) -> torch.Tensor:
+            """[k, T, S, S, 3] BGR uint8 windows → [k] probabilities."""
+            x = windows_bgr.to(dev).flip(-1).float() / 255.0
+            return _sigmoid(family.forward(params, x, cfg), temp)
+
+        # the window contract (_score_windows)
+        probs.clip_window = cfg.frames
+        probs.max_windows = cfg.max_windows
     elif distributed.spmd():
         if fused:
             warnings.warn("AVD_ATTN_FUSED=1 is single-device-only; the "
@@ -288,7 +321,7 @@ def sharded() -> bool:
     from avd_tpu_torch.parallel import distributed
     return (distributed.spmd() and not os.getenv("AVD_DETECTOR_EXPORTED")
             and os.getenv("AVD_DETECTOR_QUANT", "0") != "1"
-            and _arch() != "temporal")
+            and _arch() not in ("temporal", "timesformer"))
 
 
 def input_size(device=None) -> int:
@@ -301,6 +334,13 @@ def clip_window(device=None):
     bundle); None for the per-frame families, whose scores do not depend
     on grouping."""
     return getattr(_bundle(device)[2], "clip_window", None)
+
+
+def window_overlap(device=None) -> bool:
+    """Whether the family's last window of a clip overlaps the one before
+    it instead of being padded (the TimeSformer's window contract; loads
+    the bundle)."""
+    return hasattr(_bundle(device)[2], "max_windows")
 
 
 def resize_frames(frames_bgr: np.ndarray, size: int) -> np.ndarray:
@@ -343,8 +383,16 @@ def score_resized(resized_bgr: np.ndarray, device=None) -> dict:
 def warm(device=None) -> dict:
     """Build the bundle and score one slab (``AVD_DETECTOR_SLAB``, default
     256) of black frames: a served group's warm-up call, made before the
-    leader reads ``input_size``."""
+    leader reads ``input_size``.  A windowed family scores a black clip at
+    every forward size it takes (1, 2, 4 … ``max_windows`` windows)."""
     size = input_size(device)
+    probs_fn = _bundle(device)[2]
+    most = getattr(probs_fn, "max_windows", None)
+    if most:
+        for j in range(most.bit_length()):
+            out = score_resized(np.zeros(((1 << j) * probs_fn.clip_window,
+                                          size, size, 3), np.uint8), device)
+        return out
     n = max(1, int(os.getenv("AVD_DETECTOR_SLAB", "256")))
     return score_resized(np.zeros((n, size, size, 3), np.uint8), device)
 
@@ -382,6 +430,8 @@ def _score_prepped(resized_bgr: np.ndarray, device=None) -> dict:
     and the forward's launches) and ``det.fetch``."""
     dev = device_mod.resolve(device)
     _, _, probs_fn, source = _bundle(dev)
+    if hasattr(probs_fn, "max_windows"):
+        return _score_windows(resized_bgr, probs_fn, source)
     window = getattr(probs_fn, "clip_window", None)
     fixed = getattr(probs_fn, "fixed_batch", None)
     n = resized_bgr.shape[0]
@@ -410,6 +460,50 @@ def _score_prepped(resized_bgr: np.ndarray, device=None) -> dict:
     with span("det.fetch"):
         p = p[:n].cpu().numpy()
     return {"timeline": [float(x) for x in p], "weights": source}
+
+
+def window_starts(n: int, t: int) -> List[int]:
+    """First frames of the windows of ``t`` frames that score a clip of
+    ``n`` ≥ ``t`` frames: 0, t, 2t, … and, where ``t`` does not divide
+    ``n``, the clip's last ``t`` frames."""
+    starts = list(range(0, n - t + 1, t))
+    if n % t:
+        starts.append(n - t)
+    return starts
+
+
+def forward_sizes(k: int, most: int) -> List[int]:
+    """Window counts of the forwards that take ``k`` windows: powers of
+    two of at most ``most`` (itself one), largest first."""
+    out = []
+    while k:
+        out.append(min(most, 1 << (k.bit_length() - 1)))
+        k -= out[-1]
+    return out
+
+
+def _score_windows(resized_bgr: np.ndarray, probs_fn, source: str) -> dict:
+    """The window contract (module docstring) of a resized [N, size, size,
+    3] BGR uint8 clip.  Spans: ``det.stage`` (the windows' stack;
+    ``frames`` the clip's, ``bucket`` the windows' frames), one
+    ``det.forward`` a forward (the copy to the device and the launches;
+    ``frames`` and ``windows`` it takes) and ``det.fetch``."""
+    t, n = probs_fn.clip_window, resized_bgr.shape[0]
+    clip = _pad(resized_bgr, max(n, t))
+    starts = window_starts(clip.shape[0], t)
+    with span("det.stage", frames=n, bucket=len(starts) * t):
+        windows = np.stack([clip[s:s + t] for s in starts])
+    outs, i = [], 0
+    for m in forward_sizes(len(starts), probs_fn.max_windows):
+        with span("det.forward", frames=m * t, windows=m):
+            outs.append(probs_fn(torch.from_numpy(windows[i:i + m])))
+        i += m
+    with span("det.fetch"):
+        pw = torch.cat(outs).cpu().numpy()
+    p = np.empty(clip.shape[0], pw.dtype)
+    for s, q in reversed(list(zip(starts, pw))):  # the first window wins
+        p[s:s + t] = q
+    return {"timeline": [float(x) for x in p[:n]], "weights": source}
 
 
 def blend(timeline_ai: List[float], det: List[float]) -> List[float]:

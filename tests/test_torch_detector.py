@@ -30,6 +30,7 @@ from avd_tpu_torch.models import cnn as tcnn
 from avd_tpu_torch.models import convert
 from avd_tpu_torch.models import detector as tdet
 from avd_tpu_torch.models import temporal as ttemporal
+from avd_tpu_torch.models import timesformer as ttimesformer
 
 torch.set_num_threads(2)
 
@@ -240,9 +241,10 @@ def test_moe_tiny_matches_avd_tpu(fused):
 
 
 @pytest.mark.parametrize("name,module", [("cnn", tcnn),
-                                         ("temporal", ttemporal)])
+                                         ("temporal", ttemporal),
+                                         ("timesformer", ttimesformer)])
 def test_family_returns_the_ported_module(name, module):
-    assert tmodels.FAMILIES == ("vit", "cnn", "temporal")
+    assert tmodels.FAMILIES == ("vit", "cnn", "temporal", "timesformer")
     assert tmodels.family("vit") is tdet
     assert tmodels.family(name) is module
     for attr in ("Config", "PRESETS", "make_config", "param_shapes",
