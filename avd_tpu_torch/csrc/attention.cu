@@ -4,17 +4,17 @@
 // Replaces the TPU kernel avd_tpu/ops/pallas/attention.py:mha (body
 // _mha_kernel).  Numerics kept: bf16 q, k, v; the products of bf16 values
 // are summed in float32; scores are scaled by `scale` (1/√D) in float32;
-// the row softmax is exact (row max, exponential, sum, normalise over the
-// whole row: no running max, no rescaling); P is rounded to bf16 after the
-// normalisation and before P·V; P·V is summed in float32 and the output is
-// rounded to bf16.  The tensor-core kernel takes exp(scale·(s − max)) as
+// the row softmax is exact (every P from the whole row's max and sum: no
+// rescaling of P or of O); P is rounded to bf16 after the normalisation
+// and before P·V; P·V is summed in float32 and the output is rounded to
+// bf16.  Both kernels take exp(scale·(s − max)) as
 // 2^((s − max)·scale·log2 e) on the special-function unit (relative error
 // about 1e-6) and normalises with one reciprocal per row and a multiply per
 // score (one float32 ulp from the quotient); both lie far inside P's bf16
 // rounding (4e-3), and scaling, expf and a true division per score
 // together took as long as everything else in the kernel.
 //
-// What bounds it on an H100: at the detector's shape (T = 197, D = 64) the
+// What bounds it on an H100: at the ViT's shape (T = 197, D = 64) the
 // function moves 4·B·H·T·D·2 bytes and does 4·B·H·T²·D operations, about
 // 98 operations per byte: below the tensor cores' balance point (295), so
 // with both products on the tensor cores the least time is the bytes'.
@@ -68,12 +68,51 @@
 //    the last of the 4 passes over 13 tiles keeps one warp of four busy.
 //    PERF.md has the measurements.
 //
-// 2. mha_general_kernel, for any T whose K and V fit shared memory: the
-//    products run on the float32 cores.  Grid (b·h, query-row tile of 64),
-//    8 warps; K and V staged as bf16 (rows padded by one 32-bit word), each
-//    warp takes 4 query rows at a time, lanes take keys lane, lane+32, …,
-//    scores go through a per-warp shared buffer, then each lane owns output
-//    column pairs and walks the keys in order.
+// 2. mha_tiled_kernel<DK, MR>, the tensor-core kernel for T > 208 keys
+//    (the TimeSformer's spatial attention: T = 785, D = 64), for every D
+//    the wrapper takes, zero-padded to DK = 64 or 128.  It replaces the
+//    same TPU kernel at the lengths where the score row no longer fits a
+//    warp's registers, and has no shared-memory ceiling on T.
+//    Bound: at the TimeSformer's largest call [B=128, T=785, H=12, D=64]
+//    the function does 4·B·H·T²·D = 2.42e11 operations (0.245 ms at 989
+//    TFLOP/s) and moves 617 MB (0.184 ms at 3.35 TB/s), 392 operations a
+//    byte: bound by the tensor cores.
+//    Route: mma.sync.m16n8k16 from mma.cuh, as kernel 1.
+//    Grid: one block per (batch·head, query tile), the query tiles of one
+//    head in consecutive blocks so that its K and V stay in L2.  A warp
+//    owns 16·MR query rows (MR = 2 at DK = 64: every K and V fragment
+//    feeds two m16 tiles, which halves the ldmatrix traffic a product; 1
+//    at DK = 128, for registers); a block takes 5 warps (T = 785: 160
+//    rows, 800 padded rows against 832 at 64-row tiles; at other lengths
+//    the last block's padding costs only idle warps).  Q is staged once
+//    and held as A fragments; K
+//    and V tiles of 64 keys stream through a ring of 2 shared-memory
+//    stages by cp.async, the next tile in flight behind the one in use.
+//    Three blocks an SM (15 warps; 128 registers, 60 KB at DK = 64):
+//    the kernel waits on its own latencies (products → exponentials →
+//    products within a warp), and the third block hid more of them than a
+//    third ring stage or fewer registers a warp did (PERF.md).
+//    Numerics as kernel 1, in two passes over the key tiles:
+//    - pass 1 forms S = Q·Kᵀ tile by tile and keeps, per lane and row,
+//      the running f32 max of its columns and the sum of 2^((s − max)·
+//      scale·log2 e), rescaled when the max grows; the four lanes of a row
+//      then agree on the row's max and sum;
+//    - pass 2 forms S again, chunk of 16 keys by chunk, P = 2^((s − max)·
+//      scale·log2 e) · (1/sum) rounded to bf16 (normalised before the
+//      rounding, as the plain version), and accumulates P·V in f32 with P
+//      as the A operand as it lies.
+//    Keys past T read −∞ (their chunks are skipped, their columns in the
+//    chunk that crosses T masked); query rows past T are zeros and are not
+//    written.  The second Q·Kᵀ costs half as many products again: the
+//    price of the exact softmax, which an online form (P rounded before
+//    its normalisation) would not pay.
+//    What holds it above the bound (1.57 ms at the call above, 6.4 times;
+//    PERF.md has the measurements): the second Q·Kᵀ (1.5× the products,
+//    with the padding 1.56×); two exponentials a score on the
+//    special-function unit (16 a clock an SM: 2.0e9 of them, about 0.5 ms
+//    alone) beside the softmax's float32 instructions; mma.sync's issue
+//    rate below wgmma's; and each warp's chain from products to
+//    exponentials to products, which 15 warps an SM hide only in part.
 //
 // q, k, v and o are addressed through element strides (batch, token, head;
 // the last axis is dense), so the caller's [B,T,H,D] views of one qkv
@@ -82,6 +121,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
 
 #include "mma.cuh"
 
@@ -314,186 +355,290 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
 }
 
 // ---------------------------------------------------------------------------
-// 2. the general kernel (float32 cores)
+// 2. the tiled tensor-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;             // query rows a warp holds at once
-constexpr int kTileRows = 64;        // query rows per block
-constexpr int kMaxPairs = 2;         // output column pairs per lane: D <= 128
+constexpr int kTileKeys = 64;    // keys per streamed K/V tile
+constexpr int kTileStages = 2;   // ring slots: one tile in flight
+constexpr int kTiledWarps = 5;    // warps a block
 
-__device__ __forceinline__ float2 bf2_to_f2(uint32_t w) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&w);
-  return __bfloat1622float2(v);
-}
-
-__global__ void __launch_bounds__(kThreads)
-mha_general_kernel(const __nv_bfloat16* __restrict__ q,
-           const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-           int H, int T, int D, Strides sq, Strides sk, Strides sv,
-           Strides so, float scale) {
+template <int DK, int MR>
+__global__ void __launch_bounds__(kTiledWarps * 32, 3)
+mha_tiled_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ o, int H, int T, int D,
+                 Strides sq, Strides sk, Strides sv, Strides so, float scale,
+                 int q_tiles) {
+  constexpr int kPitch = DK + 8;             // bf16 elements per staged row
+  constexpr int kSteps = DK / 16;            // k16 steps of Q·Kᵀ
+  constexpr int kTile = kTileKeys * kPitch;  // elements of a staged K or V
+  constexpr int kChunks = kTileKeys / 16;    // 16-key chunks of a tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int half_d = D / 2;
-  const int kv_pitch = half_d + 1;  // 32-bit words per staged K/V row
-  uint32_t* s_k = reinterpret_cast<uint32_t*>(smem_raw);
-  uint32_t* s_v = s_k + static_cast<size_t>(T) * kv_pitch;
-  float* s_q = reinterpret_cast<float*>(s_v + static_cast<size_t>(T) *
-                                                  kv_pitch);
-  float* s_p = s_q + kWarps * kRows * D;
+  // ring slot i: K tile at s_ring + 2·i·kTile, V tile right after it
+  __nv_bfloat16* s_ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s_q = s_ring + kTileStages * 2 * kTile;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
+  const int n_threads = blockDim.x;
+  const int block_rows = (n_threads >> 5) * 16 * MR;
+  const int bh = blockIdx.x / q_tiles;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (blockIdx.x - bh * q_tiles) * block_rows;
+  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+  const int n_kt = (T + kTileKeys - 1) / kTileKeys;  // key tiles a pass
 
-  // stage K and V of this (b, h): 16-byte reads, 4-byte shared writes
-  {
-    const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
-    const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
-    const int vec_per_row = D / 8;
-    for (int i = tid; i < T * vec_per_row; i += kThreads) {
-      const int row = i / vec_per_row;
-      const int c = i - row * vec_per_row;
-      const uint4 kk = *reinterpret_cast<const uint4*>(kb + row * sk.t +
-                                                       c * 8);
-      const uint4 vv = *reinterpret_cast<const uint4*>(vb + row * sv.t +
-                                                       c * 8);
-      uint32_t* dk = s_k + row * kv_pitch + c * 4;
-      uint32_t* dv = s_v + row * kv_pitch + c * 4;
-      dk[0] = kk.x; dk[1] = kk.y; dk[2] = kk.z; dk[3] = kk.w;
-      dv[0] = vv.x; dv[1] = vv.y; dv[2] = vv.z; dv[3] = vv.w;
+  // Step i of the 2·n_kt steps stages key tile i mod n_kt (K alone in
+  // pass 1, K and V in pass 2) into ring slot i mod kTileStages: one
+  // commit group a step, empty past the last.
+  auto stage = [&](int i) {
+    if (i < 2 * n_kt) {
+      __nv_bfloat16* slot = s_ring + (i % kTileStages) * 2 * kTile;
+      const int key0 = (i < n_kt ? i : i - n_kt) * kTileKeys;
+      stage_rows<DK>(slot, kb, sk.t, key0, kTileKeys, T, D, tid, n_threads);
+      if (i >= n_kt)
+        stage_rows<DK>(slot + kTile, vb, sv.t, key0, kTileKeys, T, D, tid,
+                       n_threads);
     }
+    avd::cp_async_commit();
+  };
+  // Wait for step i's tile (the later steps' may stay in flight), make it
+  // visible to every warp, and refill the slot that step i − 1 used,
+  // which every warp has left by the barrier.
+  auto arrive = [&](int i) {
+    avd::cp_async_wait_group<kTileStages - 2>();
+    __syncthreads();
+    stage(i + kTileStages - 1);
+    return s_ring + (i % kTileStages) * 2 * kTile;
+  };
+
+  // the block's Q rows travel with the first K tile
+  stage_rows<DK>(s_q, q + b * sq.b + h * sq.h, sq.t, q0, block_rows, T, D,
+                 tid, n_threads);
+  for (int i = 0; i < kTileStages - 1; ++i) stage(i);
+
+  const float c = scale * 1.4426950408889634f;  // scale · log2 e
+  const int g = lane >> 2;  // the fragment row this lane holds (and g + 8)
+  const int t4 = lane & 3;
+  // ldmatrix row addresses, as kernel 1's
+  const int a_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kPitch +
+                    (lane >> 4) * 8;
+  const int k_off = ((lane & 7) + (lane >> 4) * 8) * kPitch +
+                    ((lane >> 3) & 1) * 8;
+  const int row0 = q0 + warp * 16 * MR;  // the warp's first query row
+  const bool live = row0 < T;            // a warp wholly past T only stages
+
+  // pass 1: per lane, the running max and sum of rows g (r = 0) and g + 8
+  // (r = 1) of each m16 tile over this lane's columns
+  uint32_t qa[MR][kSteps][4];
+  float mx[MR][2], sm[MR][2];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+    mx[m][0] = mx[m][1] = -INFINITY;
+    sm[m][0] = sm[m][1] = 0.f;
   }
-  __syncthreads();
-
-  float* wq = s_q + warp * kRows * D;              // [kRows][D] float32
-  float* wp = s_p + static_cast<size_t>(warp) * kRows * T;  // [kRows][T]
-  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
-  __nv_bfloat16* ob = o + b * so.b + h * so.h;
-  const int tile0 = blockIdx.y * kTileRows;
-
-  for (int pass = 0; pass < kTileRows / (kWarps * kRows); ++pass) {
-    const int row0 = tile0 + (pass * kWarps + warp) * kRows;
-    if (row0 >= T) break;  // whole warp leaves together
-
-    // the warp's query rows as float32; rows past T are zeros
-    for (int i = lane; i < kRows * D; i += 32) {
-      const int r = i / D;
-      const int d = i - r * D;
-      const int row = row0 + r;
-      wq[i] = row < T ? __bfloat162float(qb[row * sq.t + d]) : 0.f;
+  for (int i = 0; i < n_kt; ++i) {
+    const __nv_bfloat16* s_k = arrive(i);
+    if (i == 0) {
+#pragma unroll
+      for (int m = 0; m < MR; ++m)
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ++ks)
+          avd::ldmatrix_x4(qa[m][ks],
+                           s_q + (warp * MR + m) * 16 * kPitch + a_off +
+                               ks * 16);
     }
-    __syncwarp();
-
-    // scores: lane takes keys lane, lane+32, …
-    float mx[kRows];
+    if (!live) continue;
+    const int key0 = i * kTileKeys;
+    // S over the tile: n8 tile n holds keys key0 + 8n … key0 + 8n + 7;
+    // chunks wholly past T are left at 0 and masked below
+    float s[MR][2 * kChunks][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) mx[r] = -INFINITY;
-    for (int j = lane; j < T; j += 32) {
-      float acc[kRows];
+    for (int m = 0; m < MR; ++m)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-      const uint32_t* kr = s_k + j * kv_pitch;
-      for (int dp = 0; dp < half_d; ++dp) {
-        const float2 kk = bf2_to_f2(kr[dp]);
+      for (int n = 0; n < 2 * kChunks; ++n)
+        s[m][n][0] = s[m][n][1] = s[m][n][2] = s[m][n][3] = 0.f;
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float2 qq = *reinterpret_cast<const float2*>(wq + r * D +
-                                                              2 * dp);
-          acc[r] += qq.x * kk.x;
-          acc[r] += qq.y * kk.y;
-        }
-      }
+    for (int ch = 0; ch < kChunks; ++ch) {
+      if (key0 + 16 * ch < T) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float s = acc[r] * scale;
-        wp[r * T + j] = s;
-        mx[r] = fmaxf(mx[r], s);
-      }
-    }
+        for (int ks = 0; ks < kSteps; ++ks) {
+          uint32_t kf[4];
+          avd::ldmatrix_x4(kf, s_k + k_off + ch * 16 * kPitch + ks * 16);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
-    }
-
-    // e = exp(s - max), the row sums, then P = e / sum rounded to bf16
-    float sum[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) sum[r] = 0.f;
-    for (int j = lane; j < T; j += 32) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float e = expf(wp[r * T + j] - mx[r]);
-        wp[r * T + j] = e;
-        sum[r] += e;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], off);
-    }
-    for (int j = lane; j < T; j += 32) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = wp[r * T + j] / sum[r];
-        wp[r * T + j] = __bfloat162float(__float2bfloat16_rn(p));
-      }
-    }
-    __syncwarp();
-
-    // P·V: lane owns column pairs lane, lane+32 (D <= 128)
-    float2 out[kRows][kMaxPairs];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int c = 0; c < kMaxPairs; ++c) out[r][c] = make_float2(0.f, 0.f);
-    for (int j = 0; j < T; ++j) {
-      const uint32_t* vr = s_v + j * kv_pitch;
-      float p[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) p[r] = wp[r * T + j];
-#pragma unroll
-      for (int c = 0; c < kMaxPairs; ++c) {
-        const int dp = lane + 32 * c;
-        if (dp < half_d) {
-          const float2 vv = bf2_to_f2(vr[dp]);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            out[r][c].x += p[r] * vv.x;
-            out[r][c].y += p[r] * vv.y;
+          for (int m = 0; m < MR; ++m) {
+            avd::mma_bf16_16816(s[m][2 * ch], qa[m][ks], kf[0], kf[1]);
+            avd::mma_bf16_16816(s[m][2 * ch + 1], qa[m][ks], kf[2], kf[3]);
           }
         }
       }
     }
+    if (key0 + kTileKeys > T) {  // the tile crosses T: mask the padded keys
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = row0 + r;
-      if (row >= T) break;
+      for (int n = 0; n < 2 * kChunks; ++n) {
+        const int col = key0 + n * 8 + 2 * t4;
 #pragma unroll
-      for (int c = 0; c < kMaxPairs; ++c) {
-        const int dp = lane + 32 * c;
-        if (dp < half_d) {
-          *reinterpret_cast<__nv_bfloat162*>(ob + row * so.t + 2 * dp) =
-              __floats2bfloat162_rn(out[r][c].x, out[r][c].y);
+        for (int m = 0; m < MR; ++m) {
+          if (col >= T) s[m][n][0] = s[m][n][2] = -INFINITY;
+          if (col + 1 >= T) s[m][n][1] = s[m][n][3] = -INFINITY;
         }
       }
     }
-    __syncwarp();  // wq / wp are rewritten by the next pass
+    // the first tile holds 64 live keys (T > 208), so every lane's max is
+    // finite from it on and no exponent below is ∞ − ∞
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 2 * kChunks; ++n)
+          tmax = fmaxf(tmax, fmaxf(s[m][n][2 * r], s[m][n][2 * r + 1]));
+        const float mnew = fmaxf(mx[m][r], tmax);
+        const float mc = mnew * c;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 2 * kChunks; ++n)
+          sum += exp2_approx(fmaf(s[m][n][2 * r], c, -mc)) +
+                 exp2_approx(fmaf(s[m][n][2 * r + 1], c, -mc));
+        sm[m][r] = sm[m][r] * exp2_approx((mx[m][r] - mnew) * c) + sum;
+        mx[m][r] = mnew;
+      }
+    }
+  }
+
+  // the row's max and sum over its four lanes; then exp2(s·c − mc)·inv
+  float mcs[MR][2], inv[MR][2];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mrow = fmaxf(mx[m][r], __shfl_xor_sync(0xffffffffu, mx[m][r], 1));
+      mrow = fmaxf(mrow, __shfl_xor_sync(0xffffffffu, mrow, 2));
+      float l = sm[m][r] * exp2_approx((mx[m][r] - mrow) * c);
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      mcs[m][r] = mrow * c;
+      inv[m][r] = 1.f / l;
+    }
+  }
+
+  // pass 2: S again, 16 keys at a time, P normalised and rounded, P·V
+  float acc[MR][DK / 8][4];
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int n = 0; n < DK / 8; ++n)
+      acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+  for (int j = 0; j < n_kt; ++j) {
+    const __nv_bfloat16* s_k = arrive(n_kt + j);
+    const __nv_bfloat16* s_v = s_k + kTile;
+    if (!live) continue;
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch) {
+      const int key0 = j * kTileKeys + 16 * ch;
+      if (key0 >= T) break;
+      float s[MR][2][4];
+#pragma unroll
+      for (int m = 0; m < MR; ++m)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          s[m][n][0] = s[m][n][1] = s[m][n][2] = s[m][n][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        uint32_t kf[4];
+        avd::ldmatrix_x4(kf, s_k + k_off + ch * 16 * kPitch + ks * 16);
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+          avd::mma_bf16_16816(s[m][0], qa[m][ks], kf[0], kf[1]);
+          avd::mma_bf16_16816(s[m][1], qa[m][ks], kf[2], kf[3]);
+        }
+      }
+      if (key0 + 16 > T) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int col = key0 + n * 8 + 2 * t4;
+#pragma unroll
+          for (int m = 0; m < MR; ++m) {
+            if (col >= T) s[m][n][0] = s[m][n][2] = -INFINITY;
+            if (col + 1 >= T) s[m][n][1] = s[m][n][3] = -INFINITY;
+          }
+        }
+      }
+      // P as the A operand of one k16 step: score tiles 0 and 1 as they lie
+      uint32_t pa[MR][4];
+#pragma unroll
+      for (int m = 0; m < MR; ++m) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float p0 = exp2_approx(fmaf(s[m][n][2 * r], c,
+                                              -mcs[m][r])) * inv[m][r];
+            const float p1 = exp2_approx(fmaf(s[m][n][2 * r + 1], c,
+                                              -mcs[m][r])) * inv[m][r];
+            pa[m][2 * n + r] = pack_bf16(p0, p1);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kSteps; ++i) {
+        uint32_t vf[4];
+        avd::ldmatrix_x4_trans(vf, s_v + a_off + ch * 16 * kPitch + i * 16);
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+          avd::mma_bf16_16816(acc[m][2 * i], pa[m], vf[0], vf[1]);
+          avd::mma_bf16_16816(acc[m][2 * i + 1], pa[m], vf[2], vf[3]);
+        }
+      }
+    }
+  }
+  if (!live) return;
+
+  // O as bf16 through the output strides, as kernel 1
+  __nv_bfloat16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+    const int r0 = row0 + m * 16;
+#pragma unroll
+    for (int n = 0; n < DK / 8; ++n) {
+      const int col = n * 8 + 2 * t4;
+      if (col < D) {
+        if (r0 + g < T)
+          *reinterpret_cast<uint32_t*>(ob + (r0 + g) * so.t + col) =
+              pack_bf16(acc[m][n][0], acc[m][n][1]);
+        if (r0 + g + 8 < T)
+          *reinterpret_cast<uint32_t*>(ob + (r0 + g + 8) * so.t + col) =
+              pack_bf16(acc[m][n][2], acc[m][n][3]);
+      }
+    }
   }
 }
 
-size_t general_smem_bytes(int T, int D) {
-  const size_t kv = 2 * static_cast<size_t>(T) * (D / 2 + 1) * 4;
-  const size_t qs = static_cast<size_t>(kWarps) * kRows * D * 4;
-  const size_t ps = static_cast<size_t>(kWarps) * kRows * T * 4;
-  return kv + qs + ps;
+template <int DK, int MR>
+int launch_tiled(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                 const __nv_bfloat16* v, __nv_bfloat16* o, int B, int H,
+                 int T, int D, Strides sq, Strides sk, Strides sv,
+                 Strides so, float scale, cudaStream_t stream) {
+  constexpr int kWarpRows = 16 * MR;
+  constexpr size_t kRow = (DK + 8) * sizeof(__nv_bfloat16);
+  constexpr size_t kRing = kTileStages * 2 * kTileKeys * kRow;
+  constexpr int rows = kTiledWarps * kWarpRows;
+  const int q_tiles = (T + rows - 1) / rows;
+  const int64_t blocks = static_cast<int64_t>(B) * H * q_tiles;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      mha_tiled_kernel<DK, MR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kRing + rows * kRow));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mha_tiled_kernel<DK, MR><<<static_cast<int>(blocks), kTiledWarps * 32,
+                             kRing + rows * kRow, stream>>>(
+      q, k, v, o, H, T, D, sq, sk, sv, so, scale, q_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 Strides strides(const int64_t* s) { return Strides{s[0], s[1], s[2]}; }
@@ -508,7 +653,7 @@ Strides strides(const int64_t* s) { return Strides{s[0], s[1], s[2]}; }
 // The largest T the tensor-core kernel is instantiated for.
 extern "C" int avd_mha_mma_max_tokens() { return kMmaMaxTokens; }
 
-// The tensor-core kernel: T <= avd_mha_mma_max_tokens().  A shape outside
+// Kernel 1: T <= avd_mha_mma_max_tokens().  A shape outside
 // its instances is refused (cudaErrorInvalidValue), never rerouted.
 extern "C" int avd_mha_mma(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int T, int D,
@@ -536,30 +681,25 @@ extern "C" int avd_mha_mma(const void* q, const void* k, const void* v,
 #undef AVD_MHA_LAUNCH
 }
 
-// Dynamic shared memory the general kernel needs for (T, D), in bytes; the
-// wrapper refuses shapes over the card's 227 KB per block.
-extern "C" int64_t avd_mha_smem_bytes(int T, int D) {
-  return static_cast<int64_t>(general_smem_bytes(T, D));
-}
-
-// The general kernel: any T whose K and V fit shared memory.
-extern "C" int avd_mha_general(const void* q, const void* k, const void* v,
-                               void* o, int B, int H, int T, int D,
-                               const int64_t* sq, const int64_t* sk,
-                               const int64_t* sv, const int64_t* so,
-                               float scale, void* stream) {
+// Kernel 2: T > avd_mha_mma_max_tokens(), any length.  A shorter
+// T is refused (cudaErrorInvalidValue), never rerouted: its first key
+// tile must hold 64 live keys.
+extern "C" int avd_mha_tiled(const void* q, const void* k, const void* v,
+                             void* o, int B, int H, int T, int D,
+                             const int64_t* sq, const int64_t* sk,
+                             const int64_t* sv, const int64_t* so,
+                             float scale, void* stream) {
   if (B == 0 || H == 0 || T == 0) return 0;
-  const size_t smem = general_smem_bytes(T, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (T + kTileRows - 1) / kTileRows);
-  mha_general_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H, T, D, strides(sq), strides(sk), strides(sv), strides(so), scale);
-  return static_cast<int>(cudaGetLastError());
+  if (T <= kMmaMaxTokens || D < 8 || D > 128 || D % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define AVD_TILED_LAUNCH(DK, MR)                                            \
+  return launch_tiled<DK, MR>(                                              \
+      static_cast<const __nv_bfloat16*>(q),                                 \
+      static_cast<const __nv_bfloat16*>(k),                                 \
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), \
+      B, H, T, D, strides(sq), strides(sk), strides(sv), strides(so),       \
+      scale, static_cast<cudaStream_t>(stream))
+  if (D <= 64) AVD_TILED_LAUNCH(64, 2);
+  AVD_TILED_LAUNCH(128, 1);
+#undef AVD_TILED_LAUNCH
 }

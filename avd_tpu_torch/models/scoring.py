@@ -25,9 +25,10 @@ device:
   "random_init"``).  An orbax directory of ``avd_tpu`` raises, naming the
   converter;
 * ``AVD_DETECTOR_TEMP`` overrides the calibration temperature;
-* ``AVD_ATTN_FUSED=1`` routes the ViT's attention through the hand-written
+* ``AVD_ATTN_FUSED=1`` is the ViT's opt-in to the hand-written attention
   kernel (``ops/kernels/attention.py``); other families raise, and so does
-  the int8 mode with it;
+  the int8 mode with it.  The TimeSformer takes that kernel on the card
+  always, whatever the switch says;
 * ``AVD_DETECTOR_QUANT=1`` serves the ViT or the CNN in int8 W8A8
   (``models/quant.py``; weights label ``+int8``); the temporal family
   raises, and an MoE tree raises ``quantize_params``' error;
@@ -199,11 +200,14 @@ def _bundle_on(device: str):
     quant = os.getenv("AVD_DETECTOR_QUANT", "0") == "1"
     fused = os.getenv("AVD_ATTN_FUSED", "0") == "1"
     if fused:
-        # the attention kernel is the ViT block's; the int8 forward has its
-        # own attention
+        # the switch is the ViT's opt-in to the attention kernel (the
+        # TimeSformer takes it always, so the switch does not apply there);
+        # the int8 forward has its own attention
         if arch != "vit":
             raise ValueError(
-                f"AVD_ATTN_FUSED=1 supports the vit family, not {arch!r}")
+                f"AVD_ATTN_FUSED=1 supports the vit family, not {arch!r}: "
+                f"it is the ViT's opt-in to the attention kernel, which "
+                f"the timesformer takes always")
         if quant:
             raise ValueError("AVD_ATTN_FUSED=1 and AVD_DETECTOR_QUANT=1 "
                              "are mutually exclusive (the int8 forward "

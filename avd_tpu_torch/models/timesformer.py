@@ -29,11 +29,16 @@ dict holds one ``[in, out]`` product per HF module (keys in
 
 Numerics follow the ViT block's (``models/detector.py``): a bf16 stream and
 bf16 products, each bias added after its product; f32 LayerNorm (eps 1e-6);
-both attentions through ``detector.attention_core`` (f32 scores and
-softmax, P rounded to bf16); the exact (erf) GELU, as published; the class
-token's mean over frames in f32, rounded once; the final LayerNorm and the
-head in f32.  The input is normalised on the device by ``MEAN`` and
-``STD`` (the Kinetics statistics of the published image processor).
+both attentions through the hand-written kernel
+``ops/kernels/attention.attention`` (f32 scores and exact softmax, P
+rounded to bf16 after its normalisation, f32 P·V; the function of the
+ViT's ``detector.attention_core``), which takes the spatial attention's
+N + 1 tokens (785 at ``hr``) on its ``"tiled"`` variant and the temporal
+attention's T on ``"mma"``, and the plain version on the CPU; the exact
+(erf) GELU, as published; the class token's mean over frames in f32,
+rounded once; the final LayerNorm and the head in f32.  The input is
+normalised on the device by ``MEAN`` and ``STD`` (the Kinetics
+statistics of the published image processor).
 
 Each (n, t) ↔ (t, n) re-layout is a view or one copy: the temporal branch
 reads the patch tokens as a [W, N, T, D] view of the stream, the spatial
@@ -51,8 +56,8 @@ import torch
 import torch.nn.functional as F
 
 from avd_tpu_torch import device as device_mod
-from avd_tpu_torch.models.detector import (_bf16, _ln, _map_tree,
-                                           attention_core, patchify)
+from avd_tpu_torch.models.detector import _bf16, _ln, _map_tree, patchify
+from avd_tpu_torch.ops.kernels import attention as attention_k
 
 # the Kinetics statistics of the published image processor, per RGB channel
 MEAN = (0.45, 0.45, 0.45)
@@ -190,7 +195,7 @@ def _mhsa(h: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
     (already normalised) through its output projection."""
     b, n = h.shape[:2]
     qkv = (h @ qkv_w + qkv_b).reshape(b, n, 3, cfg.heads, cfg.head_dim)
-    o = attention_core(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    o = attention_k.attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
     return o @ proj_w + proj_b
 
 

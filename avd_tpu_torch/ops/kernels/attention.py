@@ -1,13 +1,14 @@
-"""Multi-head self-attention of the ViT detector: CUDA kernel + plain version.
+"""Multi-head self-attention of the detectors: CUDA kernels + plain version.
 
 Port of ``avd_tpu/ops/pallas/attention.py``: ``mha`` computes
 ``softmax(Q·Kᵀ·D^-½)·V`` per (batch, head) on [B, H, T, D] bf16 with f32
 scores, an exact f32 row softmax, P rounded to bf16 before P·V, f32
 accumulation and a bf16 result; ``attention`` is the detector block's form,
-[B, T, H, D] q/k/v → [B, T, H·D].  ``csrc/attention.cu`` holds two kernels:
-the tensor-core one (``mma.sync`` products, the score row in registers) for
-up to ``MMA_MAX_TOKENS`` tokens, and the general one on the float32 cores
-for longer sequences; ``variant`` picks by shape alone.  Both read q, k, v
+[B, T, H, D] q/k/v → [B, T, H·D].  ``csrc/attention.cu`` holds two
+tensor-core kernels (``mma.sync`` products): ``"mma"``, the score row in
+registers, for up to ``MMA_MAX_TOKENS`` tokens, and ``"tiled"``, K and V
+streamed in 64-key tiles with the softmax in two passes over them, for
+longer sequences; ``variant`` picks by shape alone.  Both read q, k, v
 and write o through element strides, so ``attention`` hands them the
 block's strided views of the qkv tensor and ``mha`` its head-major tensors,
 with no copy in either.  ``mha_plain`` / ``attention_plain`` are
@@ -25,11 +26,10 @@ import torch
 from avd_tpu_torch.ops.kernels import _build, _launches
 
 LAUNCHES = 0  # kernel launches; raised only where a kernel is launched
-VARIANT_LAUNCHES = {"mma": 0, "general": 0}  # the same, by kernel
+VARIANT_LAUNCHES = {"mma": 0, "tiled": 0}  # the same, by kernel
 
 MAX_HEAD_DIM = 128
 MMA_MAX_TOKENS = 208  # 16 · the largest key-tile count attention.cu builds
-_SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -53,14 +53,14 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def variant(T: int, D: int) -> str:
-    """Which kernel a [.., T, .., D] call launches: ``"mma"`` (tensor
-    cores; every D the wrapper takes, T up to ``MMA_MAX_TOKENS``) or
-    ``"general"`` (float32 cores).  A pure function of the shape: no build
-    or launch result changes the choice."""
+    """Which kernel a [.., T, .., D] call launches: ``"mma"`` (T up to
+    ``MMA_MAX_TOKENS``) or ``"tiled"`` (longer), each for every D the
+    wrapper takes.  A pure function of the shape: no build or launch
+    result changes the choice."""
     if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"the attention kernel takes a head dim that is a "
                          f"multiple of 8 up to {MAX_HEAD_DIM}, got {D}")
-    return "mma" if T <= MMA_MAX_TOKENS else "general"
+    return "mma" if T <= MMA_MAX_TOKENS else "tiled"
 
 
 _fns: dict = {}
@@ -69,21 +69,18 @@ _fns: dict = {}
 def _bind():
     lib = _build.load("attention")
     strides = ctypes.POINTER(ctypes.c_int64)
-    fns = {"mma": lib.avd_mha_mma, "general": lib.avd_mha_general}
+    fns = {"mma": lib.avd_mha_mma, "tiled": lib.avd_mha_tiled}
     for fn in fns.values():
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [strides] * 4 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    fns["smem"] = lib.avd_mha_smem_bytes
-    fns["smem"].argtypes = [ctypes.c_int, ctypes.c_int]
-    fns["smem"].restype = ctypes.c_int64
     if lib.avd_mha_mma_max_tokens() != MMA_MAX_TOKENS:
         raise RuntimeError("attention.cu and MMA_MAX_TOKENS disagree")
     return fns
 
 
 def _lib():
-    """{"mma": fn, "general": fn, "smem": fn} of the built library."""
+    """{"mma": fn, "tiled": fn} of the built library."""
     return _launches.symbol(_fns, "attention", _bind)
 
 
@@ -106,11 +103,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.shape[3]
     which = variant(T, D)
     fns = _lib()
-    if which == "general":
-        need = fns["smem"](T, D)
-        if need > _SMEM_LIMIT:
-            raise ValueError(f"T={T}, D={D} needs {need} bytes of shared "
-                             f"memory per block; the card has {_SMEM_LIMIT}")
     o = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
     tensors = [_dense_rows(x) for x in (q, k, v)] + [o]
     strides = [(ctypes.c_int64 * 3)(x.stride(0), x.stride(token_axis),
@@ -151,8 +143,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
               ) -> torch.Tensor:
-    """Drop-in for the detector block's einsum pair: [B, T, H, D] bf16 q,
-    k, v (strided views are read in place) → [B, T, H·D] bf16.
+    """Drop-in for ``detector.attention_core`` (the ViT block's under
+    ``AVD_ATTN_FUSED=1``, both attentions of the TimeSformer): [B, T, H,
+    D] bf16 q, k, v (strided views are read in place) → [B, T, H·D] bf16.
 
     CPU tensors take ``attention_plain``; CUDA tensors launch the kernel
     that ``variant`` names or raise."""

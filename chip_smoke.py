@@ -50,10 +50,25 @@ Phases, in order; any failure exits non-zero before the result line:
    detector's shapes ([256,6,197,64], ``moe_small``'s [256,4,17,64],
    [12,6,197,64], [8,4,17,64]) and an odd one (atol/rtol 2e-2 on bf16), with kernel, plain and
    ``scaled_dot_product_attention`` times and the bound; the same on
-   large scores (q and k times 8); then token counts
-   at the edges of the 16-key tiles (16, 17, 32, 33, 65, 197, 208) at head
-   dims 64, 8 and 128 on the tensor-core kernel and a shape past its
-   largest instance on the general kernel, with the per-kernel counters;
+   large scores (q and k times 8); TimeSformer-HR's attentions at one
+   and eight windows (spatial [16|128,12,785,64] on the tiled kernel,
+   temporal [784|6272,12,16,64] on the register-row one), each with its
+   variant, its launch count and the einsum core's time beside, the
+   tiled kernel held within 2 bf16 ulps of the plain version (at the
+   larger of each output's magnitude and its head row's RMS), and two
+   wrong answers at [16,12,785,64] read far past that measure (the plain
+   version over T − 17 keys, and over K and V zero-padded to 832 keys
+   without a mask); then token counts at the edges of the 16-key tiles
+   (16, 17, 32, 33, 65, 197, 208) at head dims 64, 8 and 128 on the
+   register-row kernel (atol/rtol 2e-2) and shapes past its largest
+   instance on the tiled kernel (2 ulps), with the per-kernel counters;
+8b. TimeSformer-HR's forward on seeded weights at 1 and 8 windows: 12
+   tiled and 12 register-row attention launches a forward, logits within
+   0.02 of the same forward through the einsum core, ms a window and peak
+   memory of both routes; then the main path: the 145-frame clip through
+   ``pipeline.analyze_decoded`` with AVD_DETECTOR_ARCH=timesformer,
+   AVD_DETECTOR_PRESET=hr, whose attention launches are 12 tiled and 12
+   register-row for each forward its ``det.forward`` spans report;
 9. flow_iter: the fused Farnebäck round against its plain version at
    [48,·,H,W] and at the tail window's [12,·,H,W] for the four levels
    (the tail's 80² and 40² and the full window's 40² take the small
@@ -330,6 +345,10 @@ FRAMES_FUSED = 61            # one full 49-frame window and a 13-frame tail
 VIT_DEPTH, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM = 6, 6, 197, 64  # "full"
 VIT_BUCKET = 256             # 145 frames padded to the power-of-two bucket
 MOE_MHA_SHAPE = (VIT_BUCKET, 4, 17, 64)  # moe_small: [B, heads, tokens, D]
+# TimeSformer-HR's attentions at 1 and 8 windows: [B, heads, tokens, D] and
+# the kernel each takes
+TSF_MHA_SHAPES = [(16, 12, 785, 64, "tiled"), (128, 12, 785, 64, "tiled"),
+                  (784, 12, 16, 64, "mma"), (6272, 12, 16, 64, "mma")]
 H_MAIN, W_MAIN = 1080, 1920
 DEV = "cuda"
 
@@ -1055,6 +1074,25 @@ def _close(out, ref, atol, rtol):
     return float(d.max()), bool((d <= atol + rtol * ref.float().abs()).all())
 
 
+TILED_ULPS = 2.0  # the tiled kernel's limit against the plain version
+
+
+def _ulps_off(out, ref, d):
+    """(max, share over ``TILED_ULPS``) of |out − ref| in bf16 ulps at the
+    larger of each output's magnitude and its head row's RMS over ``d``,
+    the measure tests/test_torch_attention.py holds the tiled kernel's
+    two-pass model to: an output whose sum cancels near zero keeps its
+    terms' absolute rounding, many ulps of the small value left."""
+    import torch
+    got, want = (x.float().reshape(-1, d) for x in (out, ref))
+    floor = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    mag = torch.maximum(torch.maximum(got.abs(), want.abs()), floor)
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126)))
+                     - 7)
+    off = (got - want).abs() / ulp
+    return float(off.max()), float((off > TILED_ULPS).float().mean())
+
+
 def phase_mha(gen):
     """The attention kernel against its plain version, as the detector
     block calls it: [B,T,H,D] views of one qkv tensor → [B,T,H·D]."""
@@ -1103,11 +1141,53 @@ def phase_mha(gen):
     max_err = max(max_err, err)
     log(f"mha [{b},{h},{t},{d}] with q and k times 8: max |Δ| {err:.3g}")
 
-    # tile edges on the tensor-core kernel, then the general kernel
+    # the TimeSformer's attentions at one and eight windows of ``hr``:
+    # spatial [16·W, 12, 785, 64] on the tiled kernel, temporal
+    # [784·W, 12, 16, 64] on the register-row one; beside each, the einsum
+    # core it replaced (``detector.attention_core``)
+    from avd_tpu_torch.models import detector
+    for b, h, t, d, which in TSF_MHA_SHAPES:
+        check(attention.variant(t, d) == which,
+              f"variant({t}, {d}) is not {which}")
+        qkv = torch.randn((b, t, 3, h, d), generator=gen,
+                          device=DEV).bfloat16()
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        before = dict(attention.VARIANT_LAUNCHES)
+        out = attention.attention(q, k, v)
+        after = dict(attention.VARIANT_LAUNCHES)
+        check(after[which] == before[which] + 1
+              and sum(after.values()) == sum(before.values()) + 1,
+              f"mha [{b},{h},{t},{d}]: launches {before} -> {after}")
+        ref = attention.attention_plain(q, k, v)
+        err, ok = _close(out, ref, 2e-2, 2e-2)
+        ulps, _ = _ulps_off(out, ref, d)
+        check(ok and (which != "tiled" or ulps <= TILED_ULPS),
+              f"mha ({which}) [{b},{h},{t},{d}]: |Δ| {err} over atol/rtol "
+              f"2e-2 or {ulps} bf16 ulps over {TILED_ULPS}")
+        max_err = max(max_err, err)
+        if (b, which) == (TSF_MHA_SHAPES[0][0], "tiled"):
+            _wrong_answers_show(q, k, v, ref, ulps)
+        del out, ref
+        ms = time_ms(lambda: attention.attention(q, k, v))
+        plain = time_ms(lambda: attention.attention_plain(q, k, v), reps=5)
+        core = time_ms(lambda: detector.attention_core(q, k, v), reps=5)
+        qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs))
+        n = b * h * t * d
+        bnd, by = bound_ms(4 * n * 2, 4 * n * t, BF16_FLOPS_PER_S)
+        rows.append(((b, h, t, d), ms, plain, lib, bnd, by, core))
+        log(f"mha ({which}) [{b},{h},{t},{d}]: kernel {ms:.4f} ms, einsum "
+            f"core {core:.4f} ms, plain {plain:.4f} ms, "
+            f"scaled_dot_product_attention {lib:.4f} ms, bound {bnd:.4f} "
+            f"ms ({by}); |Δ| {err:.3g}, {ulps:.3g} bf16 ulps")
+        del qkv, q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+
+    # tile edges on the tensor-core kernel, then the tiled kernel
     edges = [(4, 3, t, d) for d in (64, 8, 128)
              for t in (16, 17, 32, 33, 65, 197, 208)]
     beyond = [(2, 3, attention.MMA_MAX_TOKENS + 1, 64), (2, 3, 300, 40)]
-    for which, cases in (("mma", edges), ("general", beyond)):
+    for which, cases in (("mma", edges), ("tiled", beyond)):
         before = dict(attention.VARIANT_LAUNCHES)
         worst = 0.0
         for b, h, t, d in cases:
@@ -1116,13 +1196,16 @@ def phase_mha(gen):
             qkv = torch.randn((b, t, 3, h, d), generator=gen,
                               device=DEV).bfloat16()
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            err, ok = _close(attention.attention(q, k, v),
-                             attention.attention_plain(q, k, v), 2e-2, 2e-2)
-            check(ok, f"mha ({which}) [{b},{h},{t},{d}]: |Δ| {err} over "
-                      "atol/rtol 2e-2")
+            out = attention.attention(q, k, v)
+            ref = attention.attention_plain(q, k, v)
+            err, ok = _close(out, ref, 2e-2, 2e-2)
+            ulps, _ = _ulps_off(out, ref, d)
+            check(ok and (which != "tiled" or ulps <= TILED_ULPS),
+                  f"mha ({which}) [{b},{h},{t},{d}]: |Δ| {err} over "
+                  f"atol/rtol 2e-2 or {ulps} bf16 ulps over {TILED_ULPS}")
             worst = max(worst, err)
         after = attention.VARIANT_LAUNCHES
-        other = "general" if which == "mma" else "mma"
+        other = "tiled" if which == "mma" else "mma"
         check(after[which] == before[which] + len(cases)
               and after[other] == before[other],
               f"variant counters {before} -> {after} over {len(cases)} "
@@ -1131,6 +1214,133 @@ def phase_mha(gen):
         log(f"mha {which} kernel at {len(cases)} edge shapes "
             f"{[c[2:] for c in cases]}: max |Δ| {worst:.3g}")
     return rows, max_err
+
+
+def _wrong_answers_show(q, k, v, ref, ulps):
+    """Two wrong answers at the tiled kernel's shape, read by the measure
+    that holds it: the plain version over T − 17 keys (the last 16-key
+    chunk lost) and over K and V zero-padded to whole 64-key tiles without
+    a mask (the padded keys' zero scores join every row's sum).  Each has
+    to read past ``TILED_ULPS`` where the kernel read ``ulps``."""
+    import torch.nn.functional as F
+    from avd_tpu_torch.ops.kernels import attention
+    t, d = q.shape[1], q.shape[3]
+    pad = (0, 0, 0, 0, 0, -(-t // 64) * 64 - t)
+    wrong = {"T - 17 keys": attention.attention_plain(q, k[:, :t - 17],
+                                                       v[:, :t - 17]),
+             "unmasked pad keys": attention.attention_plain(
+                 q, F.pad(k, pad), F.pad(v, pad))}
+    for name, out in wrong.items():
+        worst, share = _ulps_off(out, ref, d)
+        check(worst > TILED_ULPS, f"a wrong answer ({name}) reads within "
+              f"{TILED_ULPS} bf16 ulps: {worst}")
+        log(f"mha [{q.shape[0]},{q.shape[2]},{t},{d}]: the kernel "
+            f"{ulps:.3g} bf16 ulps off the plain version; a wrong answer "
+            f"({name}) {worst:.3g} ulps, {100 * share:.1f} % of outputs "
+            f"over {TILED_ULPS}")
+
+
+def phase_tsf_forward(gen):
+    """TimeSformer-HR's forward on the card (seeded weights) at 1 and
+    ``max_windows`` windows: each forward launches ``depth`` tiled and
+    ``depth`` register-row attention kernels, its logits agree with the
+    same forward through the einsum core it replaced, and both routes'
+    card ms a window and peak memory are logged."""
+    import torch
+    from avd_tpu_torch.models import detector
+    from avd_tpu_torch.models import timesformer as tsf
+    from avd_tpu_torch.ops.kernels import attention
+    cfg = tsf.make_config("hr")
+    params = tsf.cast_for_inference(tsf.init_params(0, cfg), DEV)
+    out = {}
+
+    def peak_gb(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    with torch.inference_mode():
+        for w in (1, cfg.max_windows):
+            clips = torch.rand((w, cfg.frames, cfg.image_size,
+                                cfg.image_size, 3), generator=gen,
+                               device=DEV)
+            fwd = lambda: tsf.forward(params, clips, cfg)  # noqa: E731
+            before = dict(attention.VARIANT_LAUNCHES)
+            z = fwd()
+            got = {k: attention.VARIANT_LAUNCHES[k] - before[k]
+                   for k in before}
+            check(got == {"mma": cfg.depth, "tiled": cfg.depth},
+                  f"TimeSformer forward of {w} windows launched {got}")
+            ms, peak = time_ms(fwd, reps=5, warm=1), peak_gb(fwd)
+            with mock.patch.object(attention, "attention",
+                                   detector.attention_core):
+                z_core = fwd()
+                core_ms = time_ms(fwd, reps=5, warm=1)
+                core_peak = peak_gb(fwd)
+            gap = float((z - z_core).abs().max())
+            check(bool(torch.isfinite(z).all()) and gap <= 0.02,
+                  f"TimeSformer logits, kernel against einsum core: |Δ| "
+                  f"{gap} over 0.02")
+            out[w] = {"ms_per_window": ms / w,
+                      "einsum_core_ms_per_window": core_ms / w,
+                      "peak_gb": peak, "einsum_core_peak_gb": core_peak,
+                      "logit_gap": gap, "launches": got}
+            log(f"TimeSformer-HR forward of {w} windows: {ms / w:.2f} ms a "
+                f"window (einsum core {core_ms / w:.2f}), peak {peak:.2f} "
+                f"GB ({core_peak:.2f}); launches {got}; logits |Δ| "
+                f"{gap:.3g}")
+            del clips, z, z_core
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_tsf_path(fb):
+    """The clip through ``pipeline.analyze_decoded`` with TimeSformer-HR as
+    its detector (seeded weights): the attention launches of the path are
+    ``depth`` tiled and ``depth`` register-row ones for each forward that
+    its ``det.forward`` spans report, and nothing else."""
+    import torch
+    from avd_tpu_torch import pipeline
+    from avd_tpu_torch.models import timesformer as tsf
+    from avd_tpu_torch.ops.kernels import attention
+    from avd_tpu_torch.utils.metrics import SPANS
+    cuda = torch.device(DEV)
+    depth = tsf.make_config("hr").depth
+    meta = clip_meta(W_MAIN, H_MAIN, fb.fps, fb.duration)
+    wav = speech_like(5.0)
+    try:
+        _family_env({"AVD_DETECTOR_ARCH": "timesformer",
+                     "AVD_DETECTOR_PRESET": "hr"})
+        _reset_counters()
+        fwd0 = SPANS.totals().get("det.forward", {})
+        t0 = time.perf_counter()
+        env = pipeline.analyze_decoded(fb, wav, 16000, dict(meta),
+                                       device=cuda)
+        first_s = time.perf_counter() - t0
+        fwd1 = SPANS.totals().get("det.forward", {})
+    finally:
+        _set_env(**{k: None for k in _FAMILY_ENV})
+    video = env["video"]
+    check("detector_error" not in video,
+          f"TimeSformer path: detector_error {video.get('detector_error')}")
+    tl = np.asarray(video["detector"]["timeline"])
+    check(tl.shape == (FRAMES_MAIN,) and np.isfinite(tl).all(),
+          f"TimeSformer path: detector timeline of shape {tl.shape}")
+    forwards = int(fwd1.get("count", 0) - fwd0.get("count", 0))
+    windows = int(fwd1.get("windows", 0) - fwd0.get("windows", 0))
+    got = dict(attention.VARIANT_LAUNCHES)
+    check(forwards >= 1 and got == {"mma": depth * forwards,
+                                    "tiled": depth * forwards},
+          f"TimeSformer path: {forwards} det.forward spans, attention "
+          f"launches {got}; expected {depth} of each a forward")
+    row = {"forwards": forwards, "windows": windows, **got,
+           "first_call_s": first_s}
+    log(f"TimeSformer-HR through analyze_decoded ({FRAMES_MAIN} frames): "
+        f"{forwards} forwards of {windows} windows, attention launches "
+        f"{got} ({first_s:.2f} s, first call)")
+    return row
 
 
 def phase_flow_iter(gen):
@@ -1235,7 +1445,7 @@ def phase_detector(frames, fb):
               f"mha launched {launches['mha']} times, expected {VIT_DEPTH} "
               f"(depth x one {VIT_BUCKET}-frame bucket)")
         by_kernel = dict(_kernel_modules()["mha"].VARIANT_LAUNCHES)
-        check(by_kernel == {"mma": VIT_DEPTH, "general": 0},
+        check(by_kernel == {"mma": VIT_DEPTH, "tiled": 0},
               f"the detector path's mha launches by kernel: {by_kernel}")
         check(launches["solve_iteration"] == 0, "fused iteration ran")
         check(video["timeline"] is video["timeline_ai"], "timeline alias")
@@ -4635,7 +4845,11 @@ def mha_entry(rows, max_err, launches):
             "library_ms": VIT_DEPTH * lib,
             "unit": f"one {FRAMES_MAIN}-frame clip: {VIT_DEPTH} launches at "
                     f"{list(shape)} bf16",
-            "per_shape_ms": {str(list(r[0])): r[1] for r in rows}}
+            "per_shape_ms": {str(list(r[0])): r[1] for r in rows},
+            "timesformer_shapes": {
+                str(list(r[0])): dict(zip(
+                    ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                     "einsum_core_ms"), r[1:])) for r in rows if len(r) > 6}}
 
 
 def main():
@@ -4669,6 +4883,8 @@ def main():
         phase_card_vs_cpu()
         busy_ms = phase_profile(frames, e2e_s, dispatch)
         mha_rows, mha_err = phase_mha(gen)
+        tsf_forward = phase_tsf_forward(gen)
+        tsf_path = phase_tsf_path(fb)
         iter_rows, iter_err = phase_flow_iter(gen)
         det_launches = phase_detector(frames, fb)
         iter_launches = phase_fused_iter(frames)
@@ -4734,6 +4950,8 @@ def main():
                      upd_rows[:len(LEVELS)], upd_err,
                      launches["warp_update"]),
     ]
+    kernels[3]["timesformer_forward"] = tsf_forward
+    kernels[3]["timesformer_path_launches"] = tsf_path
     kernels[3]["moe_small_launches"] = \
         family_rows["moe_small fused"]["mha_launches"]
     kernels[3]["moe_small_shape_ms"] = {

@@ -123,7 +123,7 @@ def test_variant_sends_every_preset_to_the_tensor_core_kernel(preset):
     (17, 8, "mma"), (197, 64, "mma"),      # _SHAPES above
     (33, 16, "mma"), (1, 16, "mma"),
     (16, 128, "mma"), (208, 128, "mma"), (208, 8, "mma"),
-    (209, 64, "general"), (300, 40, "general"), (4000, 64, "general"),
+    (209, 64, "tiled"), (300, 40, "tiled"), (4000, 64, "tiled"),
 ])
 def test_variant_is_a_function_of_the_shape_alone(t, d, want):
     assert tattn.MMA_MAX_TOKENS == 208
@@ -192,8 +192,87 @@ def test_an_unmasked_pad_column_would_show():
     assert float((unmasked - want).abs().max()) > 2e-2
 
 
+def _two_pass_model(q, k, v, rows=64, keys=64, mask=True):
+    """The tiled kernel's walk over one [B, H, T, D] problem, in plain
+    torch: query rows ``rows`` at a time (rows are independent, so the
+    kernel's block height changes no value), keys and values zero-padded
+    to ``keys``-key tiles, scores scaled in f32, padded key columns −∞
+    (unless ``mask`` is False).  Pass 1 keeps each row's running max m and
+    the sum l of exp(s − m), rescaled by exp(m_old − m_new) as the max
+    grows; pass 2 forms the scores again, P = exp(s − m)·(1/l) rounded to
+    bf16, and sums P·V in f32 tile by tile; bf16 output, rows past T
+    dropped.  The kernel keeps m and l per lane and merges the four lanes
+    of a row before pass 2 (an f32 regrouping of the same sums), and takes
+    the exponential as 2^((s − m)·log2 e) with the scale folded in, as
+    ``_tile_walk_model``'s kernel does."""
+    b, h, t, d = q.shape
+    tq, tk = -(-t // rows) * rows, -(-t // keys) * keys
+    pad = torch.nn.functional.pad
+    qp = pad(q.float(), (0, 0, 0, tq - t))
+    kp, vp = (pad(x.float(), (0, 0, 0, tk - t)) for x in (k, v))
+    scale = float(1.0 / np.sqrt(d))
+    dead = torch.arange(tk) >= t
+    out = torch.empty((b, h, tq, d), dtype=torch.bfloat16)
+
+    def scores(qt, k0):
+        s = (qt @ kp[:, :, k0:k0 + keys].mT) * scale
+        return s.masked_fill(dead[k0:k0 + keys], float("-inf")) if mask \
+            else s
+
+    for r0 in range(0, tq, rows):
+        qt = qp[:, :, r0:r0 + rows]
+        m = torch.full((b, h, rows, 1), float("-inf"))
+        l = torch.zeros((b, h, rows, 1))
+        for k0 in range(0, tk, keys):
+            s = scores(qt, k0)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            l = l * torch.exp(m - m_new) \
+                + torch.exp(s - m_new).sum(dim=-1, keepdim=True)
+            m = m_new
+        inv = 1.0 / l
+        acc = torch.zeros((b, h, rows, d))
+        for k0 in range(0, tk, keys):
+            p = (torch.exp(scores(qt, k0) - m) * inv).bfloat16()
+            acc += p.float() @ vp[:, :, k0:k0 + keys]
+        out[:, :, r0:r0 + rows] = acc.bfloat16()
+    return out[:, :, :t]
+
+
+def _ulps_off(got, want):
+    """|got − want| in bf16 ulps at the larger of each output's magnitude
+    and its row's RMS over D.  The floor is for outputs near zero: a sum
+    of a few hundred P·v terms that cancels keeps the absolute rounding of
+    its terms (one bf16 flip of a P regrouped in f32), which is many ulps
+    of the small value left."""
+    floor = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    return (got - want).abs() / _bf16_ulp(
+        torch.maximum(torch.maximum(got.abs(), want.abs()), floor))
+
+
+@pytest.mark.parametrize("d", [64, 40])
+@pytest.mark.parametrize("t", [209, 785, 1000])
+def test_two_pass_model_matches_mha_plain(t, d):
+    q, k, v = (_torch(x).transpose(1, 2)
+               for x in _qkv((1, t, 2, d), seed=20 + t + d))
+    want = tattn.mha_plain(q, k, v).float()
+    got = _two_pass_model(q, k, v).float()
+    assert got.shape == want.shape
+    assert float(_ulps_off(got, want).max()) <= 1.0
+
+
+def test_the_two_pass_model_without_its_key_mask_is_visibly_wrong():
+    """At T = 785 the last key tile holds 47 padded keys: unmasked, their
+    zero scores join every row's sum, and most outputs move by more than
+    one bf16 ulp, so the check above can see the fault."""
+    q, k, v = (_torch(x).transpose(1, 2)
+               for x in _qkv((1, 785, 2, 64), seed=30))
+    want = tattn.mha_plain(q, k, v).float()
+    off = _ulps_off(_two_pass_model(q, k, v, mask=False).float(), want)
+    assert float((off > 1.0).float().mean()) > 0.5
+
+
 def test_cpu_calls_count_no_variant_launch():
     q, k, v = (_torch(x) for x in _qkv((1, 17, 2, 8), seed=5))
     before = dict(tattn.VARIANT_LAUNCHES)
     tattn.attention(q, k, v)
-    assert tattn.VARIANT_LAUNCHES == before == {"mma": 0, "general": 0}
+    assert tattn.VARIANT_LAUNCHES == before == {"mma": 0, "tiled": 0}

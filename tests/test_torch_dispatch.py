@@ -373,7 +373,7 @@ def _fake_lib(name):
         "avd_warp_bilinear", "avd_warp_bilinear_bf16", "avd_warp_update",
         "avd_warp_update_bf16", "avd_blur_solve",
         "avd_blur_solve_bf16", "avd_flow_iter", "avd_mha_mma",
-        "avd_mha_general", "avd_mha_smem_bytes")}
+        "avd_mha_tiled")}
     return types.SimpleNamespace(
         avd_mha_mma_max_tokens=lambda: attention.MMA_MAX_TOKENS, **fns)
 

@@ -10,12 +10,15 @@ planes, a batch of one, token counts at the edges of the 16-key tiles);
 ``chip_smoke.py`` covers the main path's shapes.
 """
 
+import ctypes
+
 import pytest
 import torch
 
 from avd_tpu_torch.ops import flow as flow_ops
 from avd_tpu_torch.ops.kernels import attention, blur_solve, flow_iter, warp
-from chip_smoke import _constant_m, _well_conditioned_m
+from chip_smoke import (TILED_ULPS, _constant_m, _ulps_off,
+                        _well_conditioned_m)
 
 pytestmark = pytest.mark.cuda
 
@@ -404,14 +407,32 @@ def _qkv(gen, shape):
             for _ in range(3)]
 
 
+def _assert_matches_plain(out, ref, t):
+    """Within 2e-2 of the plain version; the tiled kernel (T past the
+    register-row kernel's instances) also within ``TILED_ULPS`` bf16 ulps
+    at the larger of each output's magnitude and its row's RMS, a measure
+    that a lost key chunk or an unmasked padded key fails
+    (``chip_smoke._wrong_answers_show``)."""
+    assert torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    if t > attention.MMA_MAX_TOKENS:
+        worst, _ = _ulps_off(out, ref, out.shape[-1])
+        assert worst <= TILED_ULPS, worst
+
+
 # token counts at the edges of the 16-key tiles and of the three instances
 # (T <= 32, 80, 208), head dims at the edges of theirs (16, 64, 128), and
-# shapes past the largest instance, which take the general kernel
+# shapes past the largest instance, which take the tiled kernel: the edges
+# of its 64-key tiles and 16-key chunks, both of its instances (D <= 64,
+# 128), the TimeSformer's spatial attention (785 tokens, 12 heads) and a
+# length no shared memory could hold whole
 _MHA_SHAPES = [(2, 3, t, d) for t in (16, 17, 32, 33, 65, 197, 208)
                for d in (64, 8, 128)] + \
     [(8, 4, 17, 64), (3, 6, 197, 64), (2, 1, 1, 16), (1, 2, 80, 24),
      (1, 2, 81, 40), (2, 2, 100, 72), (1, 5, 300, 40), (1, 2, 209, 64),
-     (2, 2, 81, 64), (1, 3, 128, 64), (5, 2, 193, 64), (40, 6, 197, 64)]
+     (2, 2, 81, 64), (1, 3, 128, 64), (5, 2, 193, 64), (40, 6, 197, 64)] + \
+    [(2, 3, t, d) for t in (209, 255, 256, 257, 272, 785) for d in (64, 8,
+                                                                     128)] + \
+    [(2, 12, 785, 64), (1, 2, 1000, 40), (1, 1, 4000, 64)]
 
 
 @pytest.mark.parametrize("b,h,t,d", _MHA_SHAPES)
@@ -421,37 +442,41 @@ def test_mha_kernel_matches_plain(gen, b, h, t, d):
     by_variant = dict(attention.VARIANT_LAUNCHES)
     out = attention.mha(q, k, v)
     assert attention.LAUNCHES == before + 1
-    which = "mma" if t <= attention.MMA_MAX_TOKENS else "general"
+    which = "mma" if t <= attention.MMA_MAX_TOKENS else "tiled"
     assert attention.variant(t, d) == which
     by_variant[which] += 1
     assert attention.VARIANT_LAUNCHES == by_variant
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     ref = attention.mha_plain(q, k, v)
     assert attention.LAUNCHES == before + 1
-    assert torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    _assert_matches_plain(out, ref, t)
 
 
 @pytest.mark.parametrize("b,h,t,d", [(4, 3, 197, 64), (2, 3, 17, 8),
-                                     (2, 2, 65, 128)])
+                                     (2, 2, 65, 128), (2, 3, 785, 64),
+                                     (1, 2, 300, 128)])
 def test_mha_kernel_matches_plain_on_large_scores(gen, b, h, t, d):
     """q and k scaled by 8: scaled scores of magnitude 8·√D·… with rows that
-    are nearly one-hot.  The tensor-core kernel folds the scale into a base-2
+    are nearly one-hot.  Both kernels fold the scale into a base-2
     exponent, 2^((s − max)·scale·log2 e); here that exponent reaches into
-    the hundreds, where its rounding differs most from scaling first."""
+    the hundreds, where its rounding differs most from scaling first, and
+    the tiled kernel's running max grows by as much from tile to tile."""
     q, k, v = _qkv(gen, (b, h, t, d))
     q, k = q * 8, k * 8
-    assert attention.variant(t, d) == "mma"
+    assert attention.variant(t, d) == (
+        "mma" if t <= attention.MMA_MAX_TOKENS else "tiled")
     out = attention.mha(q, k, v)
     ref = attention.mha_plain(q, k, v)
     assert torch.isfinite(out.float()).all()
-    assert torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    _assert_matches_plain(out, ref, t)
 
 
-def test_mha_kernel_ignores_what_lies_past_t(gen):
+@pytest.mark.parametrize("t", [21, 233])
+def test_mha_kernel_ignores_what_lies_past_t(gen, t):
     """Rows and key columns from T up to the padded tile are zero-filled in
     shared memory, never read: NaNs behind each head's rows change
-    nothing."""
-    b, h, t, d = 2, 3, 21, 64
+    nothing (both kernels)."""
+    b, h, d = 2, 3, 64
     buf = torch.full((b, h, 3, t + 11, d), float("nan"), device="cuda",
                      dtype=torch.bfloat16)
     buf[:, :, :, :t] = torch.randn((b, h, 3, t, d), generator=gen,
@@ -460,7 +485,7 @@ def test_mha_kernel_ignores_what_lies_past_t(gen):
     out = attention.mha(q, k, v)
     ref = attention.mha_plain(q, k, v)
     assert torch.isfinite(out.float()).all()
-    assert torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    _assert_matches_plain(out, ref, t)
 
 
 @pytest.mark.parametrize("b,t,h,d", [(2, 17, 3, 8), (4, 197, 6, 64)])
@@ -484,9 +509,15 @@ def test_attention_wrapper_refuses_what_the_kernel_does_not_take(gen):
         attention.mha(q[..., :12], k[..., :12], v[..., :12])
     with pytest.raises(ValueError, match="shapes"):
         attention.mha(q, k[:, :1], v)
-    big = _qkv(gen, (1, 1, 4000, 64))
-    with pytest.raises(ValueError, match="shared memory"):
-        attention.mha(*big)
+    # each entry point refuses a length outside its range, never reroutes
+    fns = attention._lib()
+    for which, t in (("mma", attention.MMA_MAX_TOKENS + 1),
+                     ("tiled", attention.MMA_MAX_TOKENS)):
+        x = torch.zeros((1, t, 1, 64), dtype=torch.bfloat16, device="cuda")
+        st = [(ctypes.c_int64 * 3)(*x.stride()[:3]) for _ in range(4)]
+        err = fns[which](*[x.data_ptr()] * 4, 1, 1, t, 64, *st, 0.125,
+                         torch.cuda.current_stream().cuda_stream)
+        assert err != 0, (which, t)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The TimeSformer family of the port (CPU): the forward against its plain
-reference, the attention core it shares with the ViT, the window contract
-of ``models/scoring.py``, the modes that refuse it, the streaming path,
-and its spans.
+reference, its route through the attention kernel, the ViT's einsum
+attention core, the window contract of ``models/scoring.py``, the modes
+that refuse it, the streaming path, and its spans.
 
 There is no JAX counterpart: the family is the port's own, held to
 ``oracle/timesformer_ref.py`` (plain float32 torch, every bf16 rounding of
@@ -20,6 +20,7 @@ from avd_tpu_torch.analyzers import video as video_an
 from avd_tpu_torch.models import convert, detector, export, scoring
 from avd_tpu_torch.models import timesformer as tsf
 from avd_tpu_torch.oracle import timesformer_ref as oracle
+from avd_tpu_torch.ops.kernels import attention as attention_k
 from avd_tpu_torch.utils.metrics import SPANS
 from benchmark.reference import timesformer as bench_ref
 
@@ -179,6 +180,33 @@ def test_vit_forward_is_bit_equal_through_the_shared_core(preset,
     monkeypatch.setattr(detector, "block_forward_aux",
                         _old_block_forward_aux)
     assert torch.equal(new, detector.forward(p, x, cfg))
+
+
+def test_each_block_attends_through_the_kernel_twice(monkeypatch):
+    """Each block's temporal (T frames a patch) and spatial (N + 1 tokens a
+    frame) attentions go through ``ops/kernels/attention.attention``, in
+    that order, and the einsum core is not called; at ``hr`` the spatial
+    one takes the ``"tiled"`` kernel and the temporal one ``"mma"``."""
+    calls = []
+    real = attention_k.attention
+
+    def spy(q, k, v):
+        calls.append(tuple(q.shape))
+        return real(q, k, v)
+
+    def core(q, k, v):
+        raise AssertionError("detector.attention_core was called")
+
+    monkeypatch.setattr(attention_k, "attention", spy)
+    monkeypatch.setattr(detector, "attention_core", core)
+    w, n, t = 2, CFG.patches, CFG.frames
+    z = _program(_params(0), _clips(0, w))
+    assert z.shape == (w,) and bool(torch.isfinite(z).all())
+    h, d = CFG.heads, CFG.head_dim
+    assert calls == [(w * n, t, h, d), (w * t, n + 1, h, d)] * CFG.depth
+    hr = tsf.make_config("hr")
+    assert attention_k.variant(hr.patches + 1, hr.head_dim) == "tiled"
+    assert attention_k.variant(hr.frames, hr.head_dim) == "mma"
 
 
 class _Recorder:
