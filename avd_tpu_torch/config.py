@@ -45,16 +45,6 @@ def _env_float(name: str, default: float) -> float:
         return default
 
 
-def _env_choice(name: str, choices: tuple, default: str) -> str:
-    raw = os.getenv(name)
-    if raw is None:
-        return default
-    if raw not in choices:
-        _warn_bad(name, raw, default)
-        return default
-    return raw
-
-
 def _env_bool(name: str, default: bool) -> bool:
     return os.getenv(name, "1" if default else "0") == "1"
 
@@ -131,9 +121,6 @@ class Config:
     # AVD_FLOW_BF16: R0/R1 and M stored in bfloat16 between the flow
     # kernels (every sum stays float32); ignored by the fused round.
     flow_bf16: bool = False
-    # AVD_PREP: "host" (320² and 32² planes made on the host) or "device"
-    # (full-resolution gray shipped, resizes as matmuls on the card).
-    prep_mode: str = "host"
     # AVD_CHANGE_GATE: skip the flow of pairs whose 320² planes changed by
     # less than AVD_CHANGE_GATE_THR gray levels a pixel (opt-in, diverges
     # from the reference on near-static pairs).
@@ -172,7 +159,6 @@ class Config:
             fused_flow_iter=_env_bool("AVD_PALLAS_ITER", False),
             native=_env_bool("AVD_NATIVE", True),
             flow_bf16=_env_bool("AVD_FLOW_BF16", False),
-            prep_mode=_env_choice("AVD_PREP", ("host", "device"), "host"),
             change_gate=_env_bool("AVD_CHANGE_GATE", False),
             change_gate_thr=_env_float("AVD_CHANGE_GATE_THR", 0.5),
             freq_forensics=_env_bool("AVD_FREQ_FORENSICS", False),

@@ -8,35 +8,28 @@ the pipeline produces only per-frame scalars:
     flow_mean[k]   mean |Farnebäck flow| on 320×320 gray, pair (k, k+1)
     flow_var[k]    population variance of |flow| per pair
 
-Two preprocessing placements (``AVD_PREP``, ``config.prep_mode``):
-
-``host`` (default)
-    The host makes the 320² flow planes, the 32² hash planes and the
-    texture (``ops/host_prep.py``: the C++ host runtime unless
-    ``AVD_NATIVE=0``); the device runs hashing and the batched Farnebäck
-    flow over every pair of a window (``_prep_body``).  Each window ships
-    as ONE u8 vector through pinned host memory (``non_blocking``).
-``device``
-    Full-resolution gray (native on the host) ships to the device; the
-    resizes are fp32 matmuls and the Laplacian a stencil there
-    (``_feature_body``).  About 2 MB a frame at 1080p.
+The host makes the 320² flow planes, the 32² hash planes and the texture
+(``ops/host_prep.py``: the C++ host runtime unless ``AVD_NATIVE=0``); the
+device runs hashing and the batched Farnebäck flow over every pair of a
+window (``_prep_body``).  Each window ships as ONE u8 vector through
+pinned host memory (``non_blocking``).
 
 Clips longer than the chunk stream through windows with a one-frame
 lead-in; tails round up to quarter-chunk buckets.  Window results stay on
 the device and all of them come back in one device→host fetch at the end,
-so host work on window k+1 overlaps the device work of window k.  In
-host-prep mode each window's copy and launches run on the dispatch
-thread (``_dispatch_pool``), so decode and host prep of the next chunk
-also overlap the enqueue of this one.  A
-caller that passes a batcher to ``compute_features_streaming`` (serving
-with ``AVD_BATCH_WINDOW_MS > 0``, ``serve/batching.py``) has every window
-run there instead: the batcher stacks the full host-prep windows of
-concurrent requests into one ``run_prep_windows`` call.
+so host work on window k+1 overlaps the device work of window k.  Each
+window's copy and launches run on the dispatch thread
+(``_dispatch_pool``), so decode and host prep of the next chunk also
+overlap the enqueue of this one.  A caller that passes a batcher to
+``compute_features_streaming`` (serving with ``AVD_BATCH_WINDOW_MS > 0``,
+``serve/batching.py``) has every window run there instead: the batcher
+stacks the full windows of concurrent requests into one
+``run_prep_windows`` call.
 
 ``AVD_CHANGE_GATE=1`` (``compute_features`` only) hashes on the host and
 runs the flow only for the pairs whose 320² planes changed
 (``_compute_features_gated``).  In a rank group, ``compute_features``
-with host prep shards the clip's pairs over the ranks' time axis with a
+shards the clip's pairs over the ranks' time axis with a
 one-frame halo (``cp_pairs``, ``parallel/halo.py``); the
 streaming path keeps one device, as in ``avd_tpu``.  Aggregation runs on
 the host in float64 (``oracle/video_ref.summarize``).
@@ -57,7 +50,7 @@ from avd_tpu_torch import config as config_mod
 from avd_tpu_torch import device as device_mod
 from avd_tpu_torch import native
 from avd_tpu_torch.oracle import video_ref
-from avd_tpu_torch.ops import flow, hashing, laplacian, resize
+from avd_tpu_torch.ops import flow, hashing
 from avd_tpu_torch.ops import host_prep as host_prep_mod
 from avd_tpu_torch.utils import metrics
 
@@ -88,13 +81,10 @@ def warm_device(device=None, log=None) -> None:
     """Build every kernel (on CUDA) and run every window bucket of the
     chunk in force (``AVD_VIDEO_CHUNK``) once on zero planes on ``device``
     (default CUDA), waiting for it, so the kernels' build and first
-    launches happen here instead of inside a timed analyzer call.
-
-    No-op when already warm, and under ``AVD_PREP=device``, whose window
-    shapes hold the clip's resolution; there the first request runs under
-    the cold-start grace and flips the flag when its windows complete."""
+    launches happen here instead of inside a timed analyzer call.  No-op
+    when already warm."""
     dev = device_mod.resolve(device)
-    if _DEVICE_WARM or config_mod.get_config().prep_mode != "host":
+    if _DEVICE_WARM:
         return
     if dev.type == "cuda":  # one nvcc per source, all at once
         from avd_tpu_torch.ops.kernels import _build
@@ -133,7 +123,7 @@ def _flow_stats(prev: torch.Tensor, cur: torch.Tensor, cfg):
 
 
 def _prep_body(flow_u8: torch.Tensor, hash_u8: torch.Tensor, cfg):
-    """Host-prep variant: pair features from pre-resized windows
+    """Pair features from pre-resized windows
     ([..., N, 320, 320] and [..., N, 32, 32] uint8, any leading stack of
     windows) → (ham [..., N-1] i32, fmean [..., N-1], fvar [..., N-1]).
 
@@ -150,29 +140,6 @@ def _prep_body(flow_u8: torch.Tensor, hash_u8: torch.Tensor, cfg):
     cur = fs[..., 1:, :, :].reshape(-1, _FLOW_SIZE, _FLOW_SIZE)
     fmean, fvar = _flow_stats(prev, cur, cfg)
     return ham, fmean.view(*lead, n - 1), fvar.view(*lead, n - 1)
-
-
-def _feature_body(gray_u8: torch.Tensor, cfg):
-    """Device-prep variant: the full feature set of a [N, H, W] uint8 gray
-    window → (tex [N], ham [N-1] i32, fmean [N-1], fvar [N-1]).  The
-    resizes are fp32 products with ``ops/resize.py``'s matrices (TF32 is
-    off: ``device.resolve``)."""
-    _, h, w = gray_u8.shape
-    dev = gray_u8.device
-    area_r = resize.device_matrix(resize.area_matrix, (h, _HASH_SIZE), dev)
-    area_c = resize.device_matrix(resize.area_matrix, (w, _HASH_SIZE), dev)
-    lin_r = resize.device_matrix(resize.linear_matrix,
-                                 (h, _FLOW_SIZE, True), dev)
-    lin_c = resize.device_matrix(resize.linear_matrix,
-                                 (w, _FLOW_SIZE, True), dev)
-    gray = gray_u8.float()
-    tex = laplacian.texture_variance(gray)
-    small = torch.round(resize.resize_matmul(gray, area_r, area_c))
-    ham = hashing.consecutive_hamming(hashing.average_hash_bits(small))
-    fsmall = torch.clamp(torch.round(resize.resize_matmul(gray, lin_r,
-                                                          lin_c)), 0.0, 255.0)
-    fmean, fvar = _flow_stats(fsmall[:-1], fsmall[1:], cfg)
-    return tex, ham, fmean, fvar
 
 
 def _put(host: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -247,22 +214,6 @@ def _enqueue_prep_window(w320: np.ndarray, w32: np.ndarray,
             return run_prep_window(w320, w32, device, cfg)
 
 
-def run_window(window_gray_u8: np.ndarray, device: torch.device, cfg=None):
-    """Enqueue one device-prep window ([N, H, W] uint8 gray): one u8 copy,
-    then ``_feature_body``.  Returns (tex, ham, fmean, fvar) on the
-    device; nothing is fetched."""
-    cfg = cfg or config_mod.get_config()
-    return _feature_body(_put(window_gray_u8, device), cfg)
-
-
-def _chunk_size(h: int, w: int) -> int:
-    """Device-prep window length: shrunk for frames above 1080p to bound
-    device memory."""
-    if h * w > 1920 * 1080:
-        return max(8, _DEFAULT_CHUNK // 4)
-    return _DEFAULT_CHUNK
-
-
 def _to_gray_host(frames: np.ndarray, use_native: bool = True) -> np.ndarray:
     """[N, H, W, 3] BGR uint8 → [N, H, W] uint8, cv2 fixed point: the host
     runtime's threaded converter, or the numpy plain version under
@@ -288,17 +239,14 @@ def _assemble(feats: Dict, tex_all, ham_all, fmean_all, fvar_all) -> Dict:
     return feats
 
 
-def _window_slices(start: int, valid: int, tex, ham, fmean, fvar,
+def _window_slices(start: int, valid: int, ham, fmean, fvar,
                    sinks) -> None:
-    """Distribute one window's outputs into the global feature lists.
+    """Distribute one window's pair outputs into the feature lists.
 
     Window index 0 is the lead-in; pair i is (window[i], window[i+1]).
     For the first window the lead-in duplicates frame 0, so pair 0 is the
-    (f0, f0) artifact and is dropped.  ``tex`` (device prep only) has one
-    entry per window frame."""
-    tex_all, ham_all, fmean_all, fvar_all = sinks
-    if tex is not None:
-        tex_all.extend(np.asarray(tex)[1:1 + valid].tolist())
+    (f0, f0) artifact and is dropped."""
+    ham_all, fmean_all, fvar_all = sinks
     lo = 1 if start == 0 else 0
     ham_all.extend(np.asarray(ham)[lo:valid].tolist())
     fmean_all.extend(np.asarray(fmean)[lo:valid].tolist())
@@ -312,32 +260,24 @@ def _pad_window(window: np.ndarray, target: int) -> np.ndarray:
     return window
 
 
-def _fetch_windows(pend, with_tex: bool, sinks) -> None:
+def _fetch_windows(pend, sinks) -> None:
     """The one device→host fetch: every window's result vector at once,
     then split into the feature lists.  ``pend`` holds (vector, kind,
-    valid, is_first, window length); a vector is [tex ‖] ham ‖ fmean ‖
-    fvar, and its kind says where it is: ``"device"`` a device tensor,
-    ``"pool"`` a dispatch future of one (resolved first, so its window
-    comes back in the one copy too), ``"host"`` a future of a host array
-    from the cross-request batcher (resolved after the fetch)."""
+    valid, is_first, window length); a vector is ham ‖ fmean ‖ fvar, and
+    its kind says where it is: ``"pool"`` a dispatch future of a device
+    tensor (resolved first, so its window comes back in the one copy),
+    ``"host"`` a future of a host array from the cross-request batcher
+    (resolved after the fetch)."""
     with metrics.span("vf.fetch"):
-        on_device = [vec.result() if kind == "pool" else vec
-                     for vec, kind, *_ in pend if kind != "host"]
+        on_device = [vec.result() for vec, kind, *_ in pend
+                     if kind == "pool"]
         fetched = iter(torch.cat(on_device).cpu().split(
             [v.numel() for v in on_device]) if on_device else ())
     for vec, kind, valid, is_first, target in pend:
         vec = vec.result() if kind == "host" else next(fetched).numpy()
         k = target - 1
-        tex = None
-        if with_tex:
-            tex, vec = vec[:target], vec[target:]
-        _window_slices(0 if is_first else 1, valid, tex, vec[:k],
-                       vec[k:2 * k], vec[2 * k:], sinks)
-
-
-def _device_window_vector(outs) -> torch.Tensor:
-    tex, ham, fmean, fvar = outs
-    return torch.cat([tex, ham.float(), fmean, fvar])
+        _window_slices(0 if is_first else 1, valid, vec[:k], vec[k:2 * k],
+                       vec[2 * k:], sinks)
 
 
 # ---------------------------------------------------------------------------
@@ -415,26 +355,22 @@ def compute_features_streaming(chunk_iter, device=None,
 
     Windows are enqueued on the device as they fill, so host work on the
     next chunk overlaps device compute.  Results are identical to
-    ``compute_features`` on the concatenated frames in host-prep mode (the
-    windows do not depend on how the frames were chunked); in device-prep
-    mode the tail window takes a bucket here and the full chunk there.
-    ``batcher`` (a ``serve.batching.WindowBatcher`` or None) runs every
-    window instead of this thread: host-prep windows through
-    ``submit_prep``, device-prep ones through ``submit``.  Without one,
-    host-prep windows are enqueued by ``_dispatch_pool``'s thread on
-    this thread's device and stream; device-prep ones on this thread.
-    An exception on a dispatch thread is raised here, once every window
-    of the call has finished.
+    ``compute_features`` on the concatenated frames (the windows do not
+    depend on how the frames were chunked).  ``batcher`` (a
+    ``serve.batching.WindowBatcher`` or None) runs every window through
+    ``submit_prep`` instead of this thread.  Without one, windows are
+    enqueued by ``_dispatch_pool``'s thread on this thread's device and
+    stream.  An exception on a dispatch thread is raised here, once every
+    window of the call has finished.
     """
     dev = device_mod.pinned(device)
     cfg = config_mod.get_config()
-    host_mode = cfg.prep_mode == "host"
-    chunk = _DEFAULT_CHUNK if host_mode else None
+    chunk = _DEFAULT_CHUNK
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     pend: list = []      # (vector, kind, valid, is_first, target):
     #                       _fetch_windows' kinds
     tex_parts: list = []
-    held = None          # host planes or gray not yet dispatched
+    held = None          # host planes not yet dispatched
     prev_last = None     # lead-in frames of the next window
     n_total = 0
 
@@ -447,18 +383,13 @@ def compute_features_streaming(chunk_iter, device=None,
         windows = [_pad_window(np.concatenate([ld[None], p]), target)
                    for ld, p in zip(leads, parts)]
         if batcher is not None:
-            # a future of the host vector: full host-prep windows of
-            # concurrent requests share one stacked flow
-            vec, kind = (batcher.submit_prep(*windows, device=dev)
-                         if host_mode else batcher.submit(windows[0], dev)
-                         ), "host"
-        elif host_mode:
+            # a future of the host vector: full windows of concurrent
+            # requests share one stacked flow
+            vec, kind = batcher.submit_prep(*windows, device=dev), "host"
+        else:
             vec, kind = _dispatch_pool().submit(
                 _enqueue_prep_window, *windows, dev, cfg, stream,
                 metrics.current(), time.time_ns(), target - 1 - valid), "pool"
-        else:
-            vec, kind = _device_window_vector(
-                run_window(windows[0], dev, cfg)), "device"
         pend.append((vec, kind, valid, prev_last is None, target))
         prev_last = tuple(p[-1] for p in parts)
 
@@ -466,17 +397,11 @@ def compute_features_streaming(chunk_iter, device=None,
         for frames in chunk_iter:
             if frames.shape[0] == 0:
                 continue
-            if host_mode:
-                with metrics.span("vf.host_prep", frames=frames.shape[0]):
-                    s320, s32, tex = host_prep_mod.host_prep(
-                        frames, native=cfg.native)
-                tex_parts.append(tex)
-                parts = (s320, s32)
-            else:
-                gray = _to_gray_host(frames, cfg.native)
-                if chunk is None:
-                    chunk = _chunk_size(*gray.shape[1:3])
-                parts = (gray,)
+            with metrics.span("vf.host_prep", frames=frames.shape[0]):
+                s320, s32, tex = host_prep_mod.host_prep(frames,
+                                                         native=cfg.native)
+            tex_parts.append(tex)
+            parts = (s320, s32)
             if held is not None:
                 parts = tuple(np.concatenate([h_, p])
                               for h_, p in zip(held, parts))
@@ -494,15 +419,13 @@ def compute_features_streaming(chunk_iter, device=None,
                  "flow_vars": [], "textures": [], "timeline_ai": []}
         if n_total == 0:
             return feats
-        sinks = ([], [], [], [])
-        _fetch_windows(pend, not host_mode, sinks)
+        sinks = ([], [], [])
+        _fetch_windows(pend, sinks)
     finally:
         # no window of this call outlives it, a failed call's included
         concurrent.futures.wait([p[0] for p in pend if p[1] == "pool"])
     mark_device_warm()
-    if host_mode:
-        sinks = (np.concatenate(tex_parts).tolist(),) + sinks[1:]
-    return _assemble(feats, *sinks)
+    return _assemble(feats, np.concatenate(tex_parts).tolist(), *sinks)
 
 
 # ---------------------------------------------------------------------------
@@ -572,19 +495,17 @@ def cp_pairs(s320: np.ndarray, s32: np.ndarray, device=None):
 def compute_features(frames: np.ndarray, device=None) -> Dict:
     """Per-frame feature lists for a [N, H, W, 3] uint8 BGR batch.
 
-    Host prep runs the streaming path over chunk-sized slices (identical
-    results), or the change gate under ``AVD_CHANGE_GATE=1``; device prep
-    pads every window, the tail too, to the full chunk, as the JAX
-    package's ``compute_features`` does.  In a rank group
-    (``parallel/distributed.py``) host prep with the gate off takes the
-    context-parallel path instead, for clips of at least two frames a
-    rank (``AVD_CP=0`` turns it off): every rank is called with the same
-    frames and returns the same features, or, in a served group, its
-    leader enters the pairs on every rank with the host-prep planes
-    (``cp_pairs`` through ``distributed.run_on_group``)."""
+    The streaming path over chunk-sized slices (identical results), or
+    the change gate under ``AVD_CHANGE_GATE=1``.  In a rank group
+    (``parallel/distributed.py``) with the gate off, the context-parallel
+    path instead, for clips of at least two frames a rank (``AVD_CP=0``
+    turns it off): every rank is called with the same frames and returns
+    the same features, or, in a served group, its leader enters the pairs
+    on every rank with the host-prep planes (``cp_pairs`` through
+    ``distributed.run_on_group``)."""
     n = frames.shape[0]
     cfg = config_mod.get_config()
-    if cfg.prep_mode == "host" and not cfg.change_gate:
+    if not cfg.change_gate:
         from avd_tpu_torch.parallel import distributed
         if distributed.cp_enabled() and n >= 2 * distributed.world_size():
             s320, s32, tex = host_prep_mod.host_prep(frames,
@@ -594,28 +515,13 @@ def compute_features(frames: np.ndarray, device=None) -> Dict:
         return compute_features_streaming(
             (frames[i:i + _DEFAULT_CHUNK]
              for i in range(0, n, _DEFAULT_CHUNK)), device=device)
-    dev = device_mod.resolve(device)
     feats = {"dup": 0, "total": n, "flow_means": [], "flow_vars": [],
              "textures": [], "timeline_ai": []}
     if n == 0:
         return feats
-    if cfg.prep_mode == "host":
-        s320, s32, tex = host_prep_mod.host_prep(frames, native=cfg.native)
-        return _compute_features_gated(feats, s320, s32, tex, dev, cfg)
-    gray = _to_gray_host(frames, cfg.native)
-    chunk = _chunk_size(*gray.shape[1:3])
-    pend = []
-    for start in range(0, n, chunk):
-        valid = min(chunk, n - start)
-        lead = gray[start - 1] if start > 0 else gray[0]
-        window = _pad_window(
-            np.concatenate([lead[None], gray[start:start + valid]]),
-            chunk + 1)
-        pend.append((_device_window_vector(run_window(window, dev, cfg)),
-                     "device", valid, start == 0, chunk + 1))
-    sinks = ([], [], [], [])
-    _fetch_windows(pend, True, sinks)
-    return _assemble(feats, *sinks)
+    s320, s32, tex = host_prep_mod.host_prep(frames, native=cfg.native)
+    return _compute_features_gated(feats, s320, s32, tex,
+                                   device_mod.resolve(device), cfg)
 
 
 def analyze_frames(frames: np.ndarray, w: int, h: int, fps: float,

@@ -14,10 +14,10 @@ the added latency is at most one batch window per request.
 
 The batcher is process-wide (``active_batcher()``); the app hands it to
 ``pipeline.analyze_path``, whose streaming video path submits every window
-to it (device-prep windows too, one at a time).  Every job names its
-device, pinned with its index, and the device is part of the queue key: a
-worker thread runs each batch on that device, whatever the current device
-of the thread that submitted it or built the batcher.
+to it.  Every job names its device, pinned with its index, and the device
+is part of the queue key: a worker thread runs each batch on that device,
+whatever the current device of the thread that submitted it or built the
+batcher.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ _BUCKETS = (1, 2, 4, 8)
 
 class _Job:
     def __init__(self, windows: tuple):
-        self.windows = windows  # one or more same-length window arrays
+        self.windows = windows  # the (w320, w32) host-prep window pair
         self.future: concurrent.futures.Future = concurrent.futures.Future()
 
 
@@ -57,22 +57,12 @@ class WindowBatcher:
         self.fused_jobs = 0  # jobs that shared a device call
         self._closed = False
 
-    def submit(self, window: np.ndarray,
-               device) -> concurrent.futures.Future:
-        """Device-prep job: one [N, H, W] gray window → a future of its
-        tex ‖ ham ‖ fmean ‖ fvar float32 host vector."""
-        return self._enqueue(("gray",) + tuple(window.shape)
-                             + (device_mod.pinned(device),), (window,))
-
     def submit_prep(self, w320: np.ndarray, w32: np.ndarray,
                     device) -> concurrent.futures.Future:
-        """Host-prep job: a ([N,320,320], [N,32,32]) window pair → a future
-        of its ham ‖ fmean ‖ fvar float32 host vector."""
-        return self._enqueue(
-            ("prep", w320.shape[0], device_mod.pinned(device)), (w320, w32))
-
-    def _enqueue(self, key, windows: tuple) -> concurrent.futures.Future:
-        job = _Job(windows)
+        """A ([N,320,320], [N,32,32]) host-prep window pair → a future of
+        its ham ‖ fmean ‖ fvar float32 host vector."""
+        key = ("prep", w320.shape[0], device_mod.pinned(device))
+        job = _Job((w320, w32))
         with self._lock:
             self.jobs_in += 1
             self._queues.setdefault(key, []).append(job)
@@ -90,21 +80,17 @@ class WindowBatcher:
             self._lock.notify_all()
 
     def _max_batch_for(self, key) -> int:
-        """Fuse only full-chunk HOST-PREP windows: serving warm-up
-        (master._warmup) runs the full chunk's m ladder, so only those
-        stacked shapes are known to fit and to have met the card before a
-        live request.  Tail windows dispatch singly.  Device-prep ('gray')
-        windows never fuse: their shapes include the clip resolution,
-        which warm-up cannot enumerate."""
-        if key[0] == "prep":
-            from avd_tpu_torch.ops import video_features
-            if key[1] != video_features._DEFAULT_CHUNK + 1:
-                return 1
-            return self.max_batch
-        return 1
+        """Fuse only full-chunk windows: serving warm-up (master._warmup)
+        runs the full chunk's m ladder, so only those stacked shapes are
+        known to fit and to have met the card before a live request.  Tail
+        windows dispatch singly."""
+        from avd_tpu_torch.ops import video_features
+        if key[1] != video_features._DEFAULT_CHUNK + 1:
+            return 1
+        return self.max_batch
 
     # ------------------------------------------------------------------
-    _IDLE_EXIT_S = 30.0  # idle workers retire; _enqueue respawns on demand
+    _IDLE_EXIT_S = 30.0  # idle workers retire; submit_prep respawns them
 
     def _worker(self, key: tuple) -> None:
         while True:
@@ -112,12 +98,12 @@ class WindowBatcher:
                 idle_deadline = time.monotonic() + self._IDLE_EXIT_S
                 while not self._queues.get(key) and not self._closed:
                     if time.monotonic() >= idle_deadline:
-                        # retire instead of polling forever — device-prep
-                        # keys are per-resolution, so a long-lived worker
-                        # would otherwise leak one waking thread per
-                        # resolution ever seen.  Deregistering under the
-                        # lock makes the race with _enqueue safe: either
-                        # it sees us gone and respawns, or we see its job.
+                        # retire instead of polling forever — keys are per
+                        # window length and device, so a long-lived worker
+                        # would otherwise keep one waking thread per key
+                        # ever seen.  Deregistering under the lock makes
+                        # the race with submit_prep safe: either it sees us
+                        # gone and respawns, or we see its job.
                         self._threads.pop(key, None)
                         self._queues.pop(key, None)
                         return
@@ -146,16 +132,11 @@ class WindowBatcher:
         dev = key[-1]
         m = len(jobs)
         try:
-            if key[0] == "prep":
-                res = video_features.run_prep_windows(
-                    np.stack([j.windows[0] for j in jobs]),
-                    np.stack([j.windows[1] for j in jobs]), dev)
-                res = res.cpu().numpy()  # [m, 3(n-1)]
-                outs = [res[i] for i in range(m)]
-            else:  # a gray window never fuses (_max_batch_for): m == 1
-                outs = [video_features._device_window_vector(
-                    video_features.run_window(jobs[0].windows[0], dev))
-                    .cpu().numpy()]
+            res = video_features.run_prep_windows(
+                np.stack([j.windows[0] for j in jobs]),
+                np.stack([j.windows[1] for j in jobs]), dev)
+            res = res.cpu().numpy()  # [m, 3(n-1)]
+            outs = [res[i] for i in range(m)]
             self.batches_formed += 1
             if m > 1:
                 self.fused_jobs += m

@@ -259,15 +259,14 @@ class Leader:
         """Run each call this worker can make once on every rank: the
         bundle's build (its shards) and a slab's scoring with the detector
         on, the context-parallel pairs where the batch path can take them
-        (host prep, the gate off)."""
+        (the gate off)."""
         from avd_tpu_torch import config as config_mod
         from avd_tpu_torch.models import scoring
         from avd_tpu_torch.ops import video_features as vf
         if scoring.enabled() and scoring.sharded():
             self(scoring.warm, [], self.device)
-        cfg = config_mod.get_config()
-        if distributed.cp_enabled() and cfg.prep_mode == "host" \
-                and not cfg.change_gate:
+        if distributed.cp_enabled() and \
+                not config_mod.get_config().change_gate:
             n = 2 * self.size
             self(vf.cp_pairs, [
                 np.zeros((n, vf._FLOW_SIZE, vf._FLOW_SIZE), np.uint8),

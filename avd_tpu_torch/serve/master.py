@@ -166,24 +166,21 @@ def _warmup(device) -> None:
         import torch
 
         from avd_tpu_torch.ops import video_features as vf
-        if get_config().prep_mode == "host":
-            # every quarter-chunk window bucket (the kernels built first)
-            vf.warm_device(device)
-            if get_config().batch_window_ms > 0:
-                # the stacked windows the batcher can form: the full
-                # bucket length at every m of the ladder (tails dispatch
-                # singly through the buckets warmed above)
-                from avd_tpu_torch.serve import batching
-                full = vf._DEFAULT_CHUNK + 1
-                z320 = np.zeros((full, vf._FLOW_SIZE, vf._FLOW_SIZE),
-                                np.uint8)
-                z32 = np.zeros((full, vf._HASH_SIZE, vf._HASH_SIZE),
-                               np.uint8)
-                outs = [vf.run_prep_windows(
-                    np.broadcast_to(z320, (m,) + z320.shape),
-                    np.broadcast_to(z32, (m,) + z32.shape), device)
-                    for m in batching._BUCKETS]
-                torch.cat([o.reshape(-1) for o in outs]).cpu()
+        # every quarter-chunk window bucket (the kernels built first)
+        vf.warm_device(device)
+        if get_config().batch_window_ms > 0:
+            # the stacked windows the batcher can form: the full bucket
+            # length at every m of the ladder (tails dispatch singly
+            # through the buckets warmed above)
+            from avd_tpu_torch.serve import batching
+            full = vf._DEFAULT_CHUNK + 1
+            z320 = np.zeros((full, vf._FLOW_SIZE, vf._FLOW_SIZE), np.uint8)
+            z32 = np.zeros((full, vf._HASH_SIZE, vf._HASH_SIZE), np.uint8)
+            outs = [vf.run_prep_windows(
+                np.broadcast_to(z320, (m,) + z320.shape),
+                np.broadcast_to(z32, (m,) + z32.shape), device)
+                for m in batching._BUCKETS]
+            torch.cat([o.reshape(-1) for o in outs]).cpu()
         from avd_tpu_torch.models import scoring
         if scoring.enabled():
             # load the weights and run the first scoring bucket so the

@@ -111,8 +111,7 @@ Phases, in order; any failure exits non-zero before the result line:
     means within rtol 1e-4, the variance at that bound, |Δai_score| <=
     1e-3 and the same label; a resident 49-frame window's device-busy ms
     with and without it, and its blur+solve kernels' share),
-    ``AVD_PREP=device`` (|Δai_score| <= 1e-3 and the same label as host
-    prep), ``AVD_CHANGE_GATE=1`` on the clip with a 20-frame static run
+    ``AVD_CHANGE_GATE=1`` on the clip with a 20-frame static run
     put in front (pairs skipped, the moving pairs within rtol 1e-3 of the
     ungated run) and ``AVD_FREQ_FORENSICS=1`` (card against CPU within
     rtol 1e-4).
@@ -1814,8 +1813,8 @@ def resident_busy(clip):
 
 
 def phase_modes(frames):
-    """AVD_FLOW_BF16, AVD_PREP=device, AVD_CHANGE_GATE and
-    AVD_FREQ_FORENSICS on the 61-frame clip, each against the default."""
+    """AVD_FLOW_BF16, AVD_CHANGE_GATE and AVD_FREQ_FORENSICS on the
+    61-frame clip, each against the default."""
     import torch
     from avd_tpu_torch import pipeline
     from avd_tpu_torch.analyzers import video as video_an
@@ -1899,23 +1898,10 @@ def phase_modes(frames):
                         f"{v['blur_launches']} launches"
                         for k, v in busy.items()))
 
-        dev, dev_n, dev_s = drive(AVD_FLOW_BF16=None, AVD_PREP="device")
-        d_ai = abs(ai(dev)[0] - ai(base)[0])
-        log(f"mode AVD_PREP=device: ai_score {ai(dev)} vs host prep "
-            f"{ai(base)} (|Δ| {d_ai:.3g}), flow_mean "
-            f"{dev['video']['summary']['flow_mean']:.6f} vs "
-            f"{base['video']['summary']['flow_mean']:.6f}; launches {dev_n}; "
-            f"analyze_batch {dev_s:.3f} s (host prep {base_s:.3f} s)")
-        check(d_ai <= 1e-3 and ai(dev)[1] == ai(base)[1],
-              f"AVD_PREP=device: ai_score differs by {d_ai} or the label")
-        check(dev_n["warp_bilinear"] == want
-              and dev_n["box_blur_solve"] == want,
-              f"AVD_PREP=device launches {dev_n}")
-
         # a 20-frame static run in front of the moving frames
         gclip = np.concatenate([np.repeat(clip[:1], 20, axis=0),
                                 clip[:FRAMES_FUSED - 20]])
-        _set_env(AVD_PREP=None)
+        _set_env(AVD_FLOW_BF16=None)
         ungated = video_features.compute_features(gclip, device=cuda)
         _set_env(AVD_CHANGE_GATE="1")
         _reset_counters()
@@ -1955,7 +1941,7 @@ def phase_modes(frames):
               f"AVD_FREQ_FORENSICS=1: card and CPU differ by {worst}")
         check(all(np.isfinite(v) for v in freq.values()), "freq not finite")
     finally:
-        _set_env(AVD_FLOW_BF16=None, AVD_PREP=None, AVD_CHANGE_GATE=None,
+        _set_env(AVD_FLOW_BF16=None, AVD_CHANGE_GATE=None,
                  AVD_FREQ_FORENSICS=None)
     return bf_n
 

@@ -51,11 +51,6 @@ def _batching(monkeypatch):
     return b
 
 
-def _window(seed, n=5, h=32, w=32):
-    return np.random.default_rng(seed).integers(
-        0, 256, (n, h, w), dtype=np.int64).astype(np.uint8)
-
-
 def _prep_pairs(seed, count, n=5):
     rng = np.random.default_rng(seed)
     return [(rng.integers(0, 256, (n, 320, 320), dtype=np.int64)
@@ -68,26 +63,6 @@ def _stream(frames, batcher=None):
     return video_features.compute_features_streaming(
         (frames[i:i + 3] for i in range(0, len(frames), 3)), device="cpu",
         batcher=batcher)
-
-
-def test_batched_matches_unbatched(batch_env):
-    """Device-prep windows streamed through the batcher (``submit``, one
-    at a time) give the features of the in-process windows."""
-    batch_env.setenv("AVD_PREP", "device")
-    batch_env.setattr(video_features, "_DEFAULT_CHUNK", 4)
-    rng = np.random.default_rng(6)
-    clips = [rng.integers(0, 256, (7, 32, 48, 3), dtype=np.int64)
-             .astype(np.uint8) for _ in range(2)]
-    _no_batching(batch_env)
-    plain = [_stream(c) for c in clips]
-    b = _batching(batch_env)
-    fused = [_stream(c, b) for c in clips]
-    for p, q in zip(plain, fused):
-        assert p["dup"] == q["dup"] and len(q["textures"]) == 7
-        for key in ("textures", "flow_means", "flow_vars"):
-            np.testing.assert_allclose(q[key], p[key], rtol=2e-5, atol=1e-5)
-    assert b.jobs_in == 4 and b.fused_jobs == 0  # two windows a clip
-    assert all(key[0] == "gray" for key in b._threads)
 
 
 def test_concurrent_requests_fuse(batch_env):
@@ -107,21 +82,6 @@ def test_concurrent_requests_fuse(batch_env):
     assert len(results) == 4
     assert b.fused_jobs >= 2, (b.batches_formed, b.fused_jobs)
     assert b.jobs_in == 4
-
-
-def test_device_prep_windows_never_fuse(batch_env):
-    b = batching.active_batcher()
-    barrier = threading.Barrier(3)
-
-    def client(seed):
-        barrier.wait()
-        return b.submit(_window(seed), CPU).result(timeout=120)
-
-    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
-        results = list(pool.map(client, range(3)))
-    assert len(results) == 3
-    assert b.fused_jobs == 0
-    assert b.jobs_in == 3
 
 
 def test_prep_jobs_fuse_and_match(batch_env):

@@ -91,7 +91,7 @@ def _drop_pool():
 
 @pytest.fixture
 def env(monkeypatch):
-    for name in ("AVD_DISPATCH_WORKERS", "AVD_PREP", "AVD_CHANGE_GATE",
+    for name in ("AVD_DISPATCH_WORKERS", "AVD_CHANGE_GATE",
                  "AVD_BATCH_WINDOW_MS", "AVD_PALLAS_ITER", "AVD_FLOW_BF16"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(tvf, "_DEFAULT_CHUNK", CHUNK)
@@ -287,16 +287,6 @@ def test_a_batcher_takes_every_window_and_the_pool_none(env, frames):
                                rtol=2e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("entry", ["streaming", "batch"])
-def test_device_prep_windows_stay_on_the_calling_thread(env, frames, entry):
-    env.setenv("AVD_PREP", "device")
-    config_mod.reset_config()
-    env.setattr(tvf, "_dispatch_pool", lambda: _NoPool())
-    out = _run(entry, frames)
-    assert out["total"] == N_FRAMES and len(out["flow_means"]) == N_FRAMES - 1
-    assert _POOL.cache_info().currsize == 0
-
-
 @pytest.mark.parametrize("value", [None, "4"])
 def test_the_pool_is_one_named_thread(env, value):
     """One ``avd-dispatch`` thread a process, whatever ``avd_tpu``'s
@@ -307,6 +297,22 @@ def test_the_pool_is_one_named_thread(env, value):
     assert tvf._dispatch_pool() is pool  # one a process
     assert pool._max_workers == 1
     assert pool._thread_name_prefix == "avd-dispatch"
+
+
+def test_avd_prep_is_not_read(env, frames):
+    """``avd_tpu``'s ``AVD_PREP=device`` changes nothing in the port:
+    host-prep features, every window through the ``avd-dispatch``
+    thread, from both entries."""
+    ref = _inline(env, "streaming", frames)
+    env.setenv("AVD_PREP", "device")
+    config_mod.reset_config()
+    assert not hasattr(config_mod.get_config(), "prep_mode")
+    names = _record_threads(env)
+    for entry in ("streaming", "batch"):
+        names.clear()
+        assert _run(entry, frames) == ref
+        assert len(names) == N_WINDOWS
+        assert all(n.startswith("avd-dispatch") for n in names), names
 
 
 _WARM_PROBE = r"""
@@ -325,7 +331,7 @@ print("ok")
 
 
 def test_import_and_warm_up_start_no_dispatch_thread():
-    env = {k: v for k, v in os.environ.items() if k != "AVD_PREP"}
+    env = dict(os.environ)
     env["AVD_VIDEO_CHUNK"] = "4"  # warm windows of 2, 3, 4 and 5 frames
     r = subprocess.run([sys.executable, "-c", _WARM_PROBE], cwd=REPO,
                        env=env, capture_output=True, text=True, timeout=300)

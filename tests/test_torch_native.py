@@ -66,6 +66,15 @@ def test_gray_and_laplacian_bit_exact(h, w):
     np.testing.assert_array_equal(lap, _plain_planes(gray)[0])
 
 
+def test_gray_bit_exact():
+    """The video path's gray conversion (``_to_gray_host``), native and
+    numpy, against the JAX package's native one."""
+    frames = fixtures.noise_clip(3, 70)
+    ours = tvf._to_gray_host(frames)
+    np.testing.assert_array_equal(ours, jnative.bgr_to_gray(frames))
+    np.testing.assert_array_equal(tvf._to_gray_host(frames, False), ours)
+
+
 @pytest.mark.parametrize("h,w", _SHAPES)
 def test_fused_sweeps_bit_exact(h, w):
     frames = _frames(h, w)

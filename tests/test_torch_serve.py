@@ -629,17 +629,14 @@ def test_upload_matches_avd_tpu_app(both_apps, tmp_path, kind):
         assert "audio_error" not in ours["hints"]
 
 
-@pytest.mark.parametrize("prep", ["host", "device"])
-def test_upload_windows_go_through_the_batcher(monkeypatch, tmp_path, prep):
+def test_upload_windows_go_through_the_batcher(monkeypatch, tmp_path):
     """With AVD_BATCH_WINDOW_MS > 0 the app hands the process batcher to
-    ``analyze_path``: every window of a served upload runs there (host-prep
-    through ``submit_prep``, device-prep through ``submit``), and the
-    envelope equals the in-process one."""
+    ``analyze_path``: every window of a served upload runs there through
+    ``submit_prep``, and the envelope equals the in-process one."""
     from avd_tpu_torch.ops import video_features
     from avd_tpu_torch.serve import batching
     for name in ("AVD_BACKEND", "AVD_DETECTOR", "DEBUG", "AVD_PROFILE"):
         monkeypatch.delenv(name, raising=False)
-    monkeypatch.setenv("AVD_PREP", prep)
     monkeypatch.setenv("AVD_BATCH_WINDOW_MS", "20")
     monkeypatch.setattr(video_features, "_DEFAULT_CHUNK", 4)
     config_mod.reset_config()
@@ -659,8 +656,6 @@ def test_upload_windows_go_through_the_batcher(monkeypatch, tmp_path, prep):
         got = json.loads(data)
         b = batching._ACTIVE
         assert b is not None and b.jobs_in >= 2
-        assert {key[0] for key in b._threads} <= \
-            {"prep" if prep == "host" else "gray"}
     finally:
         batching.reset_active()
         config_mod.reset_config()

@@ -196,7 +196,6 @@ def test_a_30_frame_clip_records_the_video_stages(monkeypatch):
     window's enqueue there (37 frames: the 1-frame lead-in and the
     30 real ones bucketed, 6 of padding) and the one fetch, all under the
     caller's span."""
-    monkeypatch.delenv("AVD_PREP", raising=False)
     config_mod.reset_config()
     monkeypatch.setattr(vf, "run_prep_window", _stub_window)
     frames = np.random.default_rng(0).integers(0, 255, (30, 36, 64, 3),

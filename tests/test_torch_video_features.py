@@ -107,6 +107,52 @@ def test_streaming_equals_batch(monkeypatch):
     assert batch["total"] == 6 and len(batch["flow_means"]) == 5
 
 
+# With the chunk at 8 the windows are 9 frames (the lead-in and 8) and a
+# tail rounds up to 3, 5, 7 or 9.  These clip lengths put a tail of every
+# bucket in the first window (2, 3, 5, 7) and in a later one (9, 12, 14,
+# 15), plus one, two and two full windows and a tail (8, 16, 17).
+_TAIL_CHUNK = 8
+_TAIL_LENGTHS = (2, 3, 5, 7, 8, 9, 12, 14, 15, 16, 17)
+
+
+@pytest.fixture(scope="module")
+def pan():
+    """17 frames, 48×64 BGR, of a (1, 2) px/frame pan over smooth seeded
+    noise: every pair moves, so the flow stats hold relative bounds."""
+    n, h, w = max(_TAIL_LENGTHS), 48, 64
+    rng = np.random.default_rng(17)
+    hh, ww = h + n, w + 2 * n
+    ky, kx = np.meshgrid(np.fft.fftfreq(hh), np.fft.fftfreq(ww),
+                         indexing="ij")
+    base = np.fft.ifft2(np.fft.fft2(rng.normal(size=(hh, ww)))
+                        * np.exp(-60.0 * (kx ** 2 + ky ** 2))).real
+    base = np.clip((base - base.mean()) / base.std() * 40 + 128, 0, 255)
+    gray = np.stack([base[k:k + h, 2 * k:2 * k + w] for k in range(n)])
+    return np.repeat(gray.astype(np.uint8)[..., None], 3, axis=-1)
+
+
+@pytest.mark.parametrize("n", _TAIL_LENGTHS)
+def test_streaming_tail_buckets_match_avd_tpu(monkeypatch, pan, n):
+    """The port's streaming path, fed in chunks of 5, against the JAX
+    package's ``compute_features`` on the same frames, at the flow
+    contract of tests/test_pallas_blur_solve.py:108-111: textures and
+    duplicates exact, flow means rtol 1e-4, variances rtol 1e-3."""
+    monkeypatch.setattr(tvf, "_DEFAULT_CHUNK", _TAIL_CHUNK)
+    monkeypatch.setattr(jvf, "_DEFAULT_CHUNK", _TAIL_CHUNK)
+    frames = pan[:n]
+    ours = tvf.compute_features_streaming(
+        (frames[i:i + 5] for i in range(0, n, 5)), device="cpu")
+    ref = jvf.compute_features(frames)
+    assert ours["total"] == ref["total"] == n
+    assert ours["dup"] == ref["dup"]
+    assert ours["textures"] == ref["textures"]
+    assert len(ours["flow_means"]) == len(ref["flow_means"]) == n - 1
+    np.testing.assert_allclose(ours["flow_means"], ref["flow_means"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(ours["flow_vars"], ref["flow_vars"],
+                               rtol=1e-3)
+
+
 def test_analyze_batch_aliases_the_timelines():
     frames, dur = _sampled("spliced")
     fb = video_reader.FrameBatch(frames, len(frames), 30.0, 128, 128, dur)
